@@ -9,26 +9,62 @@ CUDA toolkit (nvcc):
 Phases (any failure exits non-zero before the result line):
 
 1. Card and build: the card's name and power limit from nvidia-smi, then
-   the nn_argmin kernel built from csrc/ with nvcc (time and ptxas report).
-2. Kernel against its plain PyTorch version on the card: the main path's
-   20,000 x 20,000, 100,000 x 100,000, sizes that are no multiple of any
-   block, dead queries/refs, duplicated refs and lattice midpoints (exact
-   ties).  Indices must be identical and squared distances bit for bit
-   equal (both sum the same f32 products in the same order, unfused); the
-   tie cases are also held against a numpy lowest-index oracle.  Kernel and
-   plain times at 20k x 20k (CUDA events, alternating turns).
-3. The main path: a chain of 6 synthetic 20,000-point scans (bench.py's
-   surface and step sizes) written as PCD files and registered with
-   ``mapping_private_tpu_torch.apps.icp_register.main([... "--device",
+   all three kernels (nn_argmin, nn_matmul, nn_gather) built from csrc/
+   with nvcc, one process per source, started together (time and ptxas
+   report for each).
+2. Each kernel against its plain PyTorch version on the card: 20,000 x
+   20,000 (bench.py's surface; for nn_gather the aux rows are the
+   target's estimated normals), sizes that are no multiple of any block,
+   1 x 5, dead queries/refs, duplicated refs (with different aux rows,
+   inside one 512-ref tie window and across two) and lattice midpoints
+   (exact ties).  Indices must be identical and squared distances bit for
+   bit equal (kernel and plain version round the same f32 operations in
+   the same order, unfused); gathered rows must be identical for single
+   winners and within 8 ulp of the largest value for tie averages (the
+   plain version sums tied rows in the library's order).  The nn_argmin
+   tie cases are also held against a numpy lowest-index oracle, the
+   nn_gather tie case against the averages worked out by hand.  Kernel
+   and plain times at 20k x 20k (CUDA events, alternating turns), beside
+   the least time the card could take (the larger of FP32 issue slots
+   over 132 SMs x 128 lanes x the SM clock, and bytes over 3.35 TB/s).
+3. The registration path: a chain of 4 synthetic 20,000-point scans
+   (bench.py's surface and step sizes) written as PCD files and registered
+   with ``mapping_private_tpu_torch.apps.icp_register.main([... "--device",
    "cuda"])``.  Every pairwise transform must be within 0.05 (Frobenius) of
    the truth, the trajectory finite, and the kernel launched at least
    pairs x sweeps times by that run.  Then per-pair wall times (normals +
    ICP), and the same small pair registered on the CPU (plain version) and
    on the card (kernel), which must agree within 1e-4.
+4. The NN layer's other entry points, as a caller uses them: on the
+   20k pair, ``nn_matmul`` and ``nn_gather`` in each distance mode give
+   the point-to-plane residuals of one ICP sweep; ``nn_gather(dist="vpu")``
+   must equal what the registration path gathers from ``nn_argmin``'s
+   indices (sq, target row, normal row) exactly; the RMS residual of
+   ``nn_matmul`` and ``dist="mxu"`` must agree with it within 1e-3
+   (relative); ``dist="mxu_fast"`` selects approximately, so its gathered
+   point must lie within the bf16 bound 2^-5 |q| |r| of the nearest.
+5. The front door at full width: ``nn_1nn`` at bench.py's 200k shape
+   (N = 200,000 on [0,5]^2, radius 0.1) with engine "compact" and engine
+   "brute": the same squared distances bit for bit, the same indices
+   wherever the distance is untied, -1 beyond the radius; both wall times.
+   Then ``icp_point_to_plane_tiled`` on that pair moved by a known small
+   twist (with the surface's analytic normals), 6 sweeps, tile 0.1, 128
+   per cell: transform within 0.01 of the
+   truth, more than 0.9 N correspondences, RMSE falling.
+6. The mapping loop: 12 synthetic 20,000-point scans of the world surface
+   seen from a known trajectory, written as PCD files and mapped with
+   ``mapping_private_tpu_torch.apps.build_map.main([... "--json",
+   "--relax", "--device", "cuda"])`` at the CLI's defaults.  Final
+   translation error below 0.02, at least 2 keyframes, more than 20,000
+   map points, and the nn_argmin kernel launched at least (scans - 1) x
+   icp-iters times by that run.  Then per-scan wall times (normals +
+   track), warm.
 
-Prints, before the last line, one JSON line {"kernels": [...]} with each
-kernel's launches on the main path, its largest |sq| disagreement with the
-plain version, and both times; the last line is
+Every launch count is set to 0 just before a path is driven and read just
+after.  Prints, before the last line, one JSON line {"kernels": [...]}
+with each kernel's launches on the paths, its largest |sq| disagreement
+with the plain version, its time, the plain version's and the bound; the
+last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Without a CUDA device it fails: nothing runs on the CPU instead.
 """
@@ -43,16 +79,32 @@ import time
 
 import numpy as np
 
-N_POINTS = 20_000  # bench.py's scan size; the CLI matches the full cloud
-N_SCANS = 6
-ICP_ITERS = 20  # the CLI's default sweep count
+N_POINTS = 20_000  # bench.py's scan size; the CLIs match the full cloud
+N_SCANS = 4  # registration chain (phase 3)
+ICP_ITERS = 20  # icp_register's default sweep count
 T_TOL = 0.05  # |T - T_true|_F, the bound of bench.py's convergence check
 SMALL_TOL = 1e-4  # CPU plain vs card kernel on a small pair
-KERNEL = {
-    "name": "nn_argmin",
-    "route": "cuda",
-    "source": "mapping_private_tpu_torch/csrc/nn_argmin.cu",
-    "replaces": "mapping_private_tpu/ops/pallas_nn.py:245",
+N_BIG = 200_000  # bench.py's big-cloud shape (phase 5)
+BIG_RADIUS = 0.1
+N_MAP_SCANS = 12  # mapping loop (phase 6)
+MAP_ICP_ITERS = 10  # build_map's default sweep count
+MAP_T_TOL = 0.02  # final translation error, tests/test_scan_to_map.py's bound
+TIE_WINDOW = 512
+EPS = float(np.finfo(np.float32).eps)
+
+# H100 SXM: SMs x FP32 lanes; bytes/s of HBM3 (NVIDIA's data sheet)
+SM_LANES = 132 * 128
+HBM_BYTES_PER_S = 3.35e12
+# FP32 issue slots per query-ref pair, from each kernel's inner loop:
+# nn_argmin 3 sub + 3 mul + 2 add + compare + select; nn_matmul 3 mul +
+# 3 add + 1 fma + compare + select; nn_gather adds the tie compare and the
+# hit count to either form.
+SLOTS_PER_PAIR = {"nn_argmin": 10, "nn_matmul": 9, "nn_gather:vpu": 12,
+                  "nn_gather:mxu": 11, "nn_gather:mxu_fast": 11}
+KERNEL_FILES = {
+    "nn_argmin": ("mapping_private_tpu_torch/csrc/nn_argmin.cu", "mapping_private_tpu/ops/pallas_nn.py:245"),
+    "nn_matmul": ("mapping_private_tpu_torch/csrc/nn_matmul.cu", "mapping_private_tpu/ops/pallas_nn.py:38"),
+    "nn_gather": ("mapping_private_tpu_torch/csrc/nn_gather.cu", "mapping_private_tpu/ops/pallas_nn.py:110"),
 }
 
 
@@ -80,8 +132,9 @@ def lowest_index_oracle(q: np.ndarray, r: np.ndarray):
     return idx, sq
 
 
-def nn_cases(pad: float):
-    """(name, queries, refs, check against the numpy oracle too)."""
+def nn_cases(pad: float, full: bool):
+    """(name, queries, refs, check against the numpy oracle too, has exact
+    ties).  ``full`` adds the two large cases of the nn_argmin check."""
     rng = np.random.default_rng(123)
     uni = lambda n: rng.uniform(-2, 2, (n, 3)).astype(np.float32)  # noqa: E731
     dead_q, dead_r = surface(N_POINTS, 21), surface(N_POINTS, 22)
@@ -94,16 +147,33 @@ def nn_cases(pad: float):
     lat_r = g[rng.permutation(len(g))].astype(np.float32)
     cells = g[(g < 39).all(1)][rng.permutation(39**3)[:1000]].astype(np.float32)
     lat_q = np.concatenate([cells + [0.5, 0.5, 0.5], cells + [0.5, 0.0, 0.5], cells + [0.0, 0.5, 0.0]])
-    return [
-        ("main_path_20000x20000", surface(N_POINTS, 1), surface(N_POINTS, 0), False),
-        ("100000x100000", surface(100_000, 2), surface(100_000, 3), False),
-        ("ragged_20011x19997", uni(20011), uni(19997), False),
-        ("1x5", uni(1), uni(5), True),
-        ("3x70001", uni(3), uni(70001), True),
-        ("dead_queries_and_refs_20000x20000", dead_q, dead_r, False),
-        ("duplicated_refs_2500x15000", dup_q, dup_r, True),
-        ("lattice_midpoints_3000x64000", lat_q.astype(np.float32), lat_r, True),
+    cases = [("main_path_20000x20000", surface(N_POINTS, 1), surface(N_POINTS, 0), False, False)]
+    if full:
+        cases.append(("100000x100000", surface(100_000, 2), surface(100_000, 3), False, False))
+    cases += [("ragged_20011x19997", uni(20011), uni(19997), False, False),
+              ("1x5", uni(1), uni(5), True, False)]
+    if full:
+        cases.append(("3x70001", uni(3), uni(70001), True, False))
+    cases += [
+        ("dead_queries_and_refs_20000x20000", dead_q, dead_r, False, False),
+        ("duplicated_refs_2500x15000", dup_q, dup_r, True, True),
+        ("lattice_midpoints_3000x64000", lat_q.astype(np.float32), lat_r, True, True),
     ]
+    return cases
+
+
+def tie_case():
+    """Duplicated refs with DIFFERENT aux rows: 100 pairs inside tie window
+    0, 100 pairs split across windows 0|1; the first 200 queries sit on
+    them.  Returns (q, r, aux, expected aux rows of those 200 queries)."""
+    rng = np.random.default_rng(77)
+    q, r = surface(2000, 41), surface(4 * TIE_WINDOW - 37, 42)
+    aux = rng.normal(size=r.shape).astype(np.float32)
+    r[20:120] = r[300:400]  # both in window 0: averaged
+    r[TIE_WINDOW + 40 : TIE_WINDOW + 140] = r[150:250]  # windows 0 | 1: the first wins
+    q[:100], q[100:200] = r[300:400], r[150:250]
+    want = np.concatenate([(aux[20:120] + aux[300:400]) / 2, aux[150:250]])
+    return q, r, aux, want
 
 
 def event_ms(torch, fn, reps: int) -> float:
@@ -120,6 +190,25 @@ def event_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def time_turns(torch, kernel_fn, plain_fn):
+    """(kernel ms, plain ms, kernel turns, plain turns): medians of three
+    alternating turns each."""
+    kern, plain = [], []
+    for turn in ("plain", "kernel", "kernel", "plain", "plain", "kernel"):
+        if turn == "kernel":
+            kern.append(event_ms(torch, kernel_fn, 50))
+        else:
+            plain.append(event_ms(torch, plain_fn, 5))
+    return statistics.median(kern), statistics.median(plain), kern, plain
+
+
+def bound_ms(name: str, nq: int, nr: int, bytes_moved: int, sm_clock_hz: float):
+    """The least time the card could take: (ms, 'operations' or 'bytes')."""
+    ops_ms = 1e3 * SLOTS_PER_PAIR[name] * nq * nr / (SM_LANES * sm_clock_hz)
+    bytes_ms = 1e3 * bytes_moved / HBM_BYTES_PER_S
+    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+
+
 def make_chain(se3_exp, torch):
     """bench.py make_chain at N_SCANS scans: each scan is the previous one
     seen from a pose moved by a random small step."""
@@ -134,53 +223,77 @@ def make_chain(se3_exp, torch):
     return scans, np.stack(steps)
 
 
+def bits(a: np.ndarray) -> np.ndarray:
+    return np.ascontiguousarray(a).view(np.int32)
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this check needs an NVIDIA GPU")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True,
-    ).stdout.strip()
+
+    def smi_query(fields: str) -> str:
+        return subprocess.run(
+            ["nvidia-smi", f"--query-gpu={fields}", "--format=csv,noheader"],
+            capture_output=True, text=True, timeout=60, check=True,
+        ).stdout.strip().splitlines()[0]
+
+    smi = smi_query("name,power.limit")
     print(smi, flush=True)  # the card's name and power limit, as nvidia-smi gives them
+    clocks = smi_query("clocks.sm,clocks.max.sm")
+    sm_clock_hz = 1e6 * float(clocks.split(",")[1].split()[0])
+    print(f"SM clock now, max: {clocks}; bounds use the max", flush=True)
     try:
         from mapping_private_tpu_torch import _build
     except ImportError as e:
         fail(f"the port is not importable (run from the repository root): {e}")
-    from mapping_private_tpu_torch.apps import icp_register
+    from mapping_private_tpu_torch.apps import build_map, icp_register
     from mapping_private_tpu_torch.core.cloud import PAD_COORD, PointCloud
     from mapping_private_tpu_torch.core.se3 import se3_exp
     from mapping_private_tpu_torch.io.pcd import load_pcd, save_pcd
-    from mapping_private_tpu_torch.ops import nn_argmin
+    from mapping_private_tpu_torch.ops import nn_argmin, nn_gather, nn_matmul
+    from mapping_private_tpu_torch.ops.nn_dispatch import nn_1nn
     from mapping_private_tpu_torch.ops.normals import estimate_normals
-    from mapping_private_tpu_torch.registration.icp import icp_point_to_plane
+    from mapping_private_tpu_torch.registration.icp import (
+        icp_point_to_plane, icp_point_to_plane_tiled)
+    from mapping_private_tpu_torch.registration.scan_to_map import ScanToMapTracker, TrackerConfig
 
     dev = torch.device("cuda")
+    to_dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
+    wrappers = {"nn_argmin": nn_argmin, "nn_matmul": nn_matmul, "nn_gather": nn_gather}
+
+    def reset_counts():
+        for w in wrappers.values():
+            w.launches = 0
 
     # -- phase 1: build ----------------------------------------------------
     t0 = time.perf_counter()
-    lib_path, log, nvcc_s = _build.compile_library()
-    _build.load_library()
-    print(f"build: {lib_path.name} nvcc {nvcc_s:.2f} s, build+load {time.perf_counter() - t0:.2f} s")
-    for line in log.splitlines():
-        if "ptxas info" in line and ("Used" in line or "Compiling" in line):
-            print(f"  {line.strip()}")
+    built = _build.compile_libraries()
+    for name in built:
+        _build.load_library(name)
+    print(f"build: {len(built)} kernels, build+load {time.perf_counter() - t0:.2f} s")
+    for name, (lib_path, log, nvcc_s) in built.items():
+        print(f"  {name}: {lib_path.name} nvcc {nvcc_s:.2f} s")
+        for line in log.splitlines():
+            if "ptxas info" in line and ("Used" in line or "Compiling" in line or "spill" in line):
+                print(f"    {line.strip()}")
 
-    # -- phase 2: kernel vs plain on the card ----------------------------------
+    # -- phase 2: kernels vs plain on the card -------------------------------
+    results = {}  # kernel name -> dict(max_abs_err, ms, plain_ms, bound_ms, bound_by)
     max_abs_err = 0.0
-    for name, q_np, r_np, with_oracle in nn_cases(PAD_COORD):
-        q = torch.from_numpy(q_np).to(dev)
-        prep = nn_argmin.prepare_nn_ref_argmin(torch.from_numpy(r_np).to(dev))
+    for name, q_np, r_np, with_oracle, _ in nn_cases(PAD_COORD, full=True):
+        q = to_dev(q_np)
+        prep = nn_argmin.prepare_nn_ref_argmin(to_dev(r_np))
         idx_k, sq_k = nn_argmin.nn_argmin_prepared(q, prep)
         torch.cuda.synchronize()
         idx_p, sq_p = nn_argmin.nn_argmin_plain(q, prep)
         idx_k, sq_k, idx_p, sq_p = (t.cpu().numpy() for t in (idx_k, sq_k, idx_p, sq_p))
         n_idx = int((idx_k != idx_p).sum())
         err = float(np.abs(sq_k.astype(np.float64) - sq_p).max())
-        n_bits = int((sq_k.view(np.int32) != sq_p.view(np.int32)).sum())
+        n_bits = int((bits(sq_k) != bits(sq_p)).sum())
         max_abs_err = max(max_abs_err, err)
-        msg = f"{name}: idx mismatches {n_idx}, sq bit mismatches {n_bits}, max|dsq| {err:.3g}"
+        msg = f"nn_argmin {name}: idx mismatches {n_idx}, sq bit mismatches {n_bits}, max|dsq| {err:.3g}"
         if with_oracle:
             idx_o, sq_o = lowest_index_oracle(q_np, r_np)
             n_o = int((idx_k != idx_o).sum()) + int((sq_k != sq_o).sum())
@@ -190,33 +303,112 @@ def main() -> int:
         print(msg, flush=True)
         if n_idx or n_bits or not np.isfinite(sq_k).all():
             fail(msg)
+    results["nn_argmin"] = {"max_abs_err": max_abs_err}
 
-    q = torch.from_numpy(surface(N_POINTS, 1)).to(dev)
-    prep = nn_argmin.prepare_nn_ref_argmin(torch.from_numpy(surface(N_POINTS, 0)).to(dev))
-    kern_ms, plain_ms = [], []
-    for turn in ("plain", "kernel", "kernel", "plain", "plain", "kernel"):
-        if turn == "kernel":
-            kern_ms.append(event_ms(torch, lambda: nn_argmin.nn_argmin_prepared(q, prep), 50))
-        else:
-            plain_ms.append(event_ms(torch, lambda: nn_argmin.nn_argmin_plain(q, prep), 5))
-    ms, p_ms = statistics.median(kern_ms), statistics.median(plain_ms)
-    print(f"nn_argmin 20000x20000: kernel {ms:.4f} ms (turns {[round(x, 4) for x in kern_ms]}), "
-          f"plain {p_ms:.4f} ms (turns {[round(x, 4) for x in plain_ms]}) [{smi}]", flush=True)
+    small_cases = nn_cases(PAD_COORD, full=False)
+    max_abs_err = 0.0
+    for name, q_np, r_np, _, _ in small_cases:
+        q, r = to_dev(q_np), to_dev(r_np)
+        idx_k, sq_k = nn_matmul.nn_matmul(q, r)
+        torch.cuda.synchronize()
+        idx_p, sq_p = nn_matmul.nn_matmul_plain(q, r)
+        idx_k, sq_k, idx_p, sq_p = (t.cpu().numpy() for t in (idx_k, sq_k, idx_p, sq_p))
+        n_idx = int((idx_k != idx_p).sum())
+        err = float(np.abs(sq_k.astype(np.float64) - sq_p).max())
+        n_bits = int((bits(sq_k) != bits(sq_p)).sum())
+        max_abs_err = max(max_abs_err, err)
+        live_r = r_np[:, 0] < 0.5 * PAD_COORD
+        dead_won = int((~live_r[idx_k]).sum()) if live_r.any() else 0
+        msg = (f"nn_matmul {name}: idx mismatches {n_idx}, sq bit mismatches {n_bits}, "
+               f"max|dsq| {err:.3g}, dead refs chosen {dead_won}")
+        print(msg, flush=True)
+        if n_idx or n_bits or dead_won or not np.isfinite(sq_k).all():
+            fail(msg)
+    results["nn_matmul"] = {"max_abs_err": max_abs_err}
 
-    # -- phase 3: the main path -------------------------------------------------
+    # the main 20k pair: aux rows are the target's estimated normals
+    src_np, tgt_np = surface(N_POINTS, 1), surface(N_POINTS, 0)
+    tgt_cloud = estimate_normals(PointCloud.from_numpy(tgt_np, device=dev), k=12)
+    tgt_xyz, tgt_nrm = tgt_cloud.padded_xyz()[:N_POINTS], tgt_cloud.channel("normal")[:N_POINTS]
+    rng = np.random.default_rng(5)
+    tq, tr, taux, twant = tie_case()
+    for dist in nn_gather.DIST_MODES:
+        max_abs_err = 0.0
+        cases = [(n, q, r, None if n.startswith("main_path") else rng.normal(size=r.shape).astype(np.float32), ties)
+                 for n, q, r, _, ties in small_cases]
+        cases.append(("ties_in_and_across_windows_2000x2011", tq, tr, taux, True))
+        for name, q_np, r_np, aux_np, ties in cases:
+            q = to_dev(q_np)
+            if aux_np is None:
+                rt, nt = nn_gather.prepare_nn_ref(tgt_xyz, tgt_nrm)
+            else:
+                rt, nt = nn_gather.prepare_nn_ref(to_dev(r_np), to_dev(aux_np))
+            out_k = nn_gather.nn_gather_prepared(q, rt, nt, dist=dist)
+            torch.cuda.synchronize()
+            out_p = nn_gather.nn_gather_plain(q, rt, nt, dist)
+            sq_k, qs_k, ns_k, sq_p, qs_p, ns_p = (t.cpu().numpy() for t in (*out_k, *out_p))
+            n_bits = int((bits(sq_k) != bits(sq_p)).sum())
+            err = float(np.abs(sq_k.astype(np.float64) - sq_p).max())
+            max_abs_err = max(max_abs_err, err)
+            # a dead query (-PAD_COORD) is ~1e8 from every live ref, where f32
+            # d2 steps by ~2e9: it ties with many refs, like a duplicate
+            live_q = q_np[:, 0] > -0.5 * PAD_COORD
+            n_rows = int(((qs_k != qs_p) | (ns_k != ns_p)).any(1)[live_q].sum())
+            tol_q = 8 * EPS * max(1.0, float(np.abs(qs_p).max()))
+            tol_n = 8 * EPS * max(1.0, float(np.abs(ns_p).max()))
+            d_q, d_n = float(np.abs(qs_k - qs_p).max()), float(np.abs(ns_k - ns_p).max())
+            msg = (f"nn_gather[{dist}] {name}: sq bit mismatches {n_bits}, max|dsq| {err:.3g}, live rows with "
+                   f"unequal gathered values {n_rows}, max|dq_sel| {d_q:.3g} (tol {tol_q:.3g}), "
+                   f"max|dn_sel| {d_n:.3g} (tol {tol_n:.3g})")
+            if name.startswith("ties_in") and dist != "mxu_fast":
+                d_hand = float(np.abs(ns_k[:200] - twant).max())
+                msg += f", vs tie averages by hand {d_hand:.3g}"
+                if d_hand > tol_n or (qs_k[:200] != q_np[:200]).any():
+                    fail(msg)
+            print(msg, flush=True)
+            if n_bits or d_q > tol_q or d_n > tol_n or (n_rows and not ties) or not np.isfinite(sq_k).all():
+                fail(msg)
+        results[f"nn_gather:{dist}"] = {"max_abs_err": max_abs_err}
+
+    # times at 20k x 20k, alternating turns, and the bounds
+    q = to_dev(src_np)
+    prep = nn_argmin.prepare_nn_ref_argmin(tgt_xyz)
+    rt, nt = nn_gather.prepare_nn_ref(tgt_xyz, tgt_nrm)
+    timed = {
+        "nn_argmin": (lambda: nn_argmin.nn_argmin_prepared(q, prep),
+                      lambda: nn_argmin.nn_argmin_plain(q, prep), 4 * (3 + 3 + 2) * N_POINTS),
+        "nn_matmul": (lambda: nn_matmul.nn_matmul(q, tgt_xyz),
+                      lambda: nn_matmul.nn_matmul_plain(q, tgt_xyz), 4 * (3 + 3 + 2) * N_POINTS),
+    }
+    for dist in nn_gather.DIST_MODES:
+        timed[f"nn_gather:{dist}"] = (
+            lambda d=dist: nn_gather.nn_gather_prepared(q, rt, nt, dist=d),
+            lambda d=dist: nn_gather.nn_gather_plain(q, rt, nt, d), 4 * (3 + 6 + 7) * N_POINTS)
+    for name, (kernel_fn, plain_fn, bytes_moved) in timed.items():
+        ms, p_ms, kern, plain = time_turns(torch, kernel_fn, plain_fn)
+        b_ms, b_by = bound_ms(name, N_POINTS, N_POINTS, bytes_moved, sm_clock_hz)
+        results[name].update(ms=ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)
+        print(f"{name} 20000x20000: kernel {ms:.4f} ms (turns {[round(x, 4) for x in kern]}), "
+              f"plain {p_ms:.4f} ms (turns {[round(x, 4) for x in plain]}), bound {b_ms:.4f} ms by {b_by} "
+              f"({b_ms / ms:.3f} of the kernel's time; bytes alone {1e3 * bytes_moved / HBM_BYTES_PER_S:.5f} ms) "
+              f"[{smi}]", flush=True)
+
+    launches = {name: {} for name in results}  # kernel -> {path: count}
+
+    # -- phase 3: the registration path ----------------------------------------
     scans, steps = make_chain(se3_exp, torch)
     with tempfile.TemporaryDirectory() as td:
         paths = [f"{td}/scan{k}.pcd" for k in range(N_SCANS)]
         for p, s in zip(paths, scans):
             save_pcd(p, {"xyz": s})
         buf = io.StringIO()
-        nn_argmin.launches = 0
+        reset_counts()
         t0 = time.perf_counter()
         with contextlib.redirect_stdout(buf):
             rc = icp_register.main(paths + ["--json", "--device", "cuda"])
         torch.cuda.synchronize()
         cli_s = time.perf_counter() - t0
-        launches = nn_argmin.launches
+        n_launch = launches["nn_argmin"]["icp_register"] = nn_argmin.launches
         clouds = [load_pcd(p, device=dev) for p in paths]
     out = json.loads(buf.getvalue())
     pairs = N_SCANS - 1
@@ -224,7 +416,7 @@ def main() -> int:
     traj = np.asarray(out["trajectory"], np.float64)
     errs = np.linalg.norm(Ts - steps, axis=(1, 2))
     print(f"icp_register main(): rc {rc}, {cli_s:.3f} s wall for {N_SCANS} scans "
-          f"(load + {pairs} pairs + pose graph, first call), kernel launches {launches}")
+          f"(load + {pairs} pairs + pose graph, first call), kernel launches {n_launch}")
     print(f"pairwise |T - T_true|_F: {[float(f'{e:.3g}') for e in errs]} (bound {T_TOL})")
     if rc != 0:
         fail(f"icp_register returned {rc}")
@@ -232,8 +424,8 @@ def main() -> int:
         fail(f"bad output: pairwise {Ts.shape}, trajectory {traj.shape}, finite {np.isfinite(traj).all()}")
     if errs.max() >= T_TOL:
         fail(f"ICP did not converge: max |T - T_true|_F = {errs.max()}")
-    if launches < pairs * ICP_ITERS:
-        fail(f"main path launched the kernel {launches} times, expected >= {pairs * ICP_ITERS}")
+    if n_launch < pairs * ICP_ITERS:
+        fail(f"icp_register launched the kernel {n_launch} times, expected >= {pairs * ICP_ITERS}")
 
     # per-pair wall time, warm: host clock around work that ends in a sync
     for k in range(pairs):
@@ -264,8 +456,164 @@ def main() -> int:
     if d_small >= SMALL_TOL:
         fail(f"CPU and card disagree on a small pair: {d_small}")
 
-    print(json.dumps({"kernels": [dict(KERNEL, launches=launches, max_abs_err=max_abs_err,
-                                       ms=ms, plain_ms=p_ms)]}))
+    # -- phase 4: the NN layer's other entry points ------------------------------
+    # one ICP sweep's correspondences on the 20k pair, as a caller asks for
+    # them; nn_argmin + two gathers is what the registration path does
+    def residual_rms(p, q_sel, n_sel):
+        return float(torch.sqrt(torch.mean(torch.sum(n_sel * (p - q_sel), dim=-1) ** 2)))
+
+    reset_counts()
+    idx_a, sq_a = nn_argmin.nn_argmin_prepared(q, nn_argmin.prepare_nn_ref_argmin(tgt_xyz))
+    q_a, n_a = tgt_xyz[idx_a.long()], tgt_nrm[idx_a.long()]
+    rms = {"nn_argmin": residual_rms(q, q_a, n_a)}
+    idx_m, _ = nn_matmul.nn_matmul(q, tgt_xyz)
+    launches["nn_matmul"]["ops.nn_matmul"] = nn_matmul.launches
+    rms["nn_matmul"] = residual_rms(q, tgt_xyz[idx_m.long()], tgt_nrm[idx_m.long()])
+    for dist in nn_gather.DIST_MODES:
+        before = nn_gather.launches
+        sq_g, q_g, n_g = nn_gather.nn_gather(q, tgt_xyz, tgt_nrm, dist=dist)
+        launches[f"nn_gather:{dist}"]["ops.nn_gather"] = nn_gather.launches - before
+        rms[f"nn_gather:{dist}"] = residual_rms(q, q_g, n_g)
+        if dist == "vpu":
+            n_bad = int((sq_g != sq_a).sum() + (q_g != q_a).any(1).sum() + (n_g != n_a).any(1).sum())
+            print(f"nn_gather[vpu] vs nn_argmin + gathers on the 20k pair: {n_bad} unequal rows")
+            if n_bad:
+                fail("nn_gather(dist='vpu') disagrees with what the registration path gathers")
+    torch.cuda.synchronize()
+    launches["nn_argmin"]["ops cross-check"] = nn_argmin.launches
+    print(f"one sweep's point-to-plane RMS residual by entry point: "
+          f"{ {k: float(f'{v:.6g}') for k, v in rms.items()} }")
+    for k, v in rms.items():
+        exact = k != "nn_gather:mxu_fast"
+        if not np.isfinite(v) or (exact and abs(v - rms["nn_argmin"]) > 1e-3 * rms["nn_argmin"]):
+            fail(f"{k}: RMS residual {v} against {rms['nn_argmin']} from the exact path")
+    # q_g is mxu_fast's gathered point here, the last mode of the loop
+    excess = torch.sum((q - q_g) ** 2, dim=-1) - sq_a
+    bf16_bound = 2.0 ** -5 * torch.linalg.norm(q, dim=-1) * torch.linalg.norm(q_g, dim=-1) + 1e-5
+    worst = float((excess / bf16_bound).max())
+    print(f"nn_gather[mxu_fast]: largest excess squared distance over the bf16 bound: {worst:.3g} (must be <= 1)")
+    if not worst <= 1.0:
+        fail("nn_gather(dist='mxu_fast') picked a point beyond the bf16 bound")
+    for name in ("nn_matmul", *(f"nn_gather:{d}" for d in nn_gather.DIST_MODES)):
+        if sum(launches[name].values()) < 1:
+            fail(f"{name}: its entry point did not launch the kernel")
+
+    # -- phase 5: the front door and tiled ICP at 200k ----------------------------
+    rng = np.random.default_rng(0)
+    xy = rng.uniform(0, 5.0, (N_BIG, 2))
+    z = 0.3 * np.sin(xy[:, 0] * 2) + 0.2 * np.cos(xy[:, 1] * 3) + rng.normal(0, 0.005, N_BIG)
+    big_tgt_np = np.column_stack([xy, z]).astype(np.float32)
+    big_src_np = (big_tgt_np + rng.normal(0, 0.01, big_tgt_np.shape)).astype(np.float32)
+    big_tgt, big_src = to_dev(big_tgt_np), to_dev(big_src_np)
+    ones = torch.ones(N_BIG, dtype=torch.bool, device=dev)
+    reset_counts()
+    walls, nn_out = {}, {}
+    for engine in ("compact", "brute", "compact", "brute"):  # second turn of each is warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        i_e, s_e = nn_1nn(big_src, ones, big_tgt, ones, radius=BIG_RADIUS, engine=engine)
+        torch.cuda.synchronize()
+        walls.setdefault(engine, []).append(1e3 * (time.perf_counter() - t0))
+        nn_out[engine] = (i_e.cpu().numpy(), s_e.cpu().numpy())
+    launches["nn_argmin"]["nn_1nn brute 200k"] = nn_argmin.launches
+    (i_c, s_c), (i_b, s_b) = nn_out["compact"], nn_out["brute"]
+    n_sq = int((bits(s_c) != bits(s_b)).sum())
+    differ = i_c != i_b
+    # rows whose indices differ must be exact ties: both engines report the
+    # same d², and each index's own distance is that d²
+    d_c = ((big_src_np[differ] - big_tgt_np[i_c[differ]]) ** 2).sum(1)
+    d_b = ((big_src_np[differ] - big_tgt_np[i_b[differ]]) ** 2).sum(1)
+    n_untied = int((np.abs(d_c - d_b) > 1e-9).sum()) if differ.any() else 0
+    found = int((i_b >= 0).sum())
+    beyond_ok = bool(np.isinf(s_b[i_b < 0]).all() and (s_b[i_b >= 0] <= np.float32(BIG_RADIUS) ** 2).all())
+    print(f"nn_1nn {N_BIG}x{N_BIG} radius {BIG_RADIUS}: compact {walls['compact'][1]:.2f} ms warm "
+          f"({walls['compact'][0]:.2f} first), brute {walls['brute'][1]:.2f} ms warm ({walls['brute'][0]:.2f} "
+          f"first), wall with sync; sq bit mismatches {n_sq}, index differences {int(differ.sum())} of which "
+          f"untied {n_untied}, matched {found} [{smi}]", flush=True)
+    if n_sq or n_untied or not beyond_ok or found < 0.99 * N_BIG:
+        fail("nn_1nn: the compact and brute engines disagree at 200k")
+
+    xi_big = torch.tensor([0.02, -0.015, 0.01, 0.004, -0.003, 0.005])
+    T_big = se3_exp(xi_big).numpy().astype(np.float64)
+    moved = ((big_src_np.astype(np.float64) - T_big[:3, 3]) @ T_big[:3, :3]).astype(np.float32)
+    moved_d = to_dev(moved)
+    # the surface's analytic normals, so that all six degrees are observable
+    nrm_np = np.column_stack([-0.6 * np.cos(2 * xy[:, 0]), 0.6 * np.sin(3 * xy[:, 1]), np.ones(N_BIG)])
+    big_nrm = to_dev((nrm_np / np.linalg.norm(nrm_np, axis=1, keepdims=True)).astype(np.float32))
+    icp_walls = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = icp_point_to_plane_tiled(moved_d, ones, big_tgt, ones, big_nrm, tile_size=BIG_RADIUS,
+                                       cap_per_cell=128, iters=6)
+        T_got = res.transform.cpu().numpy()
+        icp_walls.append(1e3 * (time.perf_counter() - t0))
+    per_iter = res.per_iter_rmse.cpu().numpy()
+    err_big = float(np.linalg.norm(T_got - T_big))
+    n_corr = int(res.num_corr)
+    print(f"icp_point_to_plane_tiled {N_BIG} points, 6 sweeps, tile {BIG_RADIUS}: {icp_walls[1]:.2f} ms warm "
+          f"({icp_walls[0]:.2f} first), |T - T_true|_F {err_big:.3g}, num_corr {n_corr}, "
+          f"per-sweep RMSE {[float(f'{v:.4g}') for v in per_iter]} [{smi}]", flush=True)
+    if not np.isfinite(T_got).all() or err_big >= 0.01 or n_corr <= 0.9 * N_BIG or not per_iter[-1] < per_iter[0]:
+        fail("tiled ICP at 200k did not converge")
+
+    # -- phase 6: the mapping loop ---------------------------------------------
+    poses = [se3_exp(torch.tensor([0.05 * k, 0.01 * k, 0.0, 0.0, 0.0, 0.02 * k])).numpy().astype(np.float64)
+             for k in range(N_MAP_SCANS)]
+    with tempfile.TemporaryDirectory() as td:
+        paths = [f"{td}/scan{k}.pcd" for k in range(N_MAP_SCANS)]
+        for k, (p, T) in enumerate(zip(paths, poses)):
+            world = surface(N_POINTS, 100 + k).astype(np.float64)  # a fresh sampling of the world
+            save_pcd(p, {"xyz": ((world - T[:3, 3]) @ T[:3, :3]).astype(np.float32)})
+        buf = io.StringIO()
+        reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = build_map.main(paths + ["--json", "--relax", "--device", "cuda"])
+        torch.cuda.synchronize()
+        map_s = time.perf_counter() - t0
+        n_launch = launches["nn_argmin"]["build_map"] = nn_argmin.launches
+        clouds = [load_pcd(p, capacity_bucket=2048, device=dev) for p in paths]
+    out = json.loads(buf.getvalue())
+    traj = np.asarray(out["trajectory"], np.float64)
+    t_errs = np.linalg.norm(traj[:, :3, 3] - np.stack(poses)[:, :3, 3], axis=1)
+    print(f"build_map main(): rc {rc}, {map_s:.3f} s wall for {N_MAP_SCANS} scans (load + normals + track + "
+          f"relax, first call), keyframes {out['keyframes']}, map_points {out['map_points']}, "
+          f"nn_argmin launches {n_launch}")
+    print(f"translation error per scan: {[float(f'{e:.3g}') for e in t_errs]} (final bound {MAP_T_TOL})")
+    if rc != 0:
+        fail(f"build_map returned {rc}")
+    if traj.shape != (N_MAP_SCANS, 4, 4) or not np.isfinite(traj).all():
+        fail(f"bad trajectory: {traj.shape}")
+    if t_errs[-1] >= MAP_T_TOL or out["keyframes"] < 2 or out["map_points"] <= 20_000:
+        fail(f"mapping loop off: final error {t_errs[-1]}, keyframes {out['keyframes']}, "
+             f"map_points {out['map_points']}")
+    if n_launch < (N_MAP_SCANS - 1) * MAP_ICP_ITERS:
+        fail(f"build_map launched nn_argmin {n_launch} times, expected >= {(N_MAP_SCANS - 1) * MAP_ICP_ITERS}")
+
+    # per-scan wall time, warm (the CLI's configuration)
+    tracker = ScanToMapTracker(TrackerConfig(icp_iters=MAP_ICP_ITERS), device=dev)
+    for k, cloud in enumerate(clouds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cloud = estimate_normals(cloud, k=12)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        _, kf = tracker.track(cloud.padded_xyz(), cloud.channel("normal"), cloud.mask)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        print(f"scan {k}: {1e3 * (t2 - t0):.2f} ms wall (normals k=12 {1e3 * (t1 - t0):.2f} ms, track "
+              f"{1e3 * (t2 - t1):.2f} ms{', keyframe' if kf else ''}) [{smi}]")
+
+    kernels = []
+    for name, r in results.items():
+        source, replaces = KERNEL_FILES[name.split(":")[0]]
+        kernels.append(dict(
+            name=name, route="cuda", source=source, replaces=replaces,
+            launches=sum(launches[name].values()), launches_by_path=launches[name],
+            max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None))
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,11 +1,11 @@
 """Build and load the hand-written CUDA kernels.
 
-The kernel source ``csrc/nn_argmin.cu`` is compiled by nvcc for Hopper
-(``sm_90a``) into a shared library with a plain C interface and loaded with ctypes: no
-PyTorch headers, so a build takes seconds.  The library lands in
-``build/torch_kernels/`` at the repository root, keyed by a hash of the
-source and the flags, at first use.  A failed build raises; nothing falls
-back.
+Each kernel source ``csrc/<name>.cu`` is compiled by nvcc for Hopper
+(``sm_90a``) into a shared library of its own with a plain C interface
+and loaded with ctypes: no PyTorch headers, so a build takes seconds.
+The libraries land in ``build/torch_kernels/`` at the repository root,
+keyed by a hash of the source and the flags, at first use.  A failed
+build raises; nothing falls back.
 """
 from __future__ import annotations
 
@@ -20,11 +20,29 @@ import time
 
 _PKG = pathlib.Path(__file__).resolve().parent
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
-SOURCE = _PKG / "csrc" / "nn_argmin.cu"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
+
+_VP, _CI = ctypes.c_void_p, ctypes.c_int
+# Kernel name -> argument types of its ``<name>_launch`` entry point (all
+# return cudaGetLastError() as an int).  Each library also exports
+# ``<name>_error_string(int) -> const char*``.
+KERNELS = {
+    # q, nq, rt, nr, idx, sq, stream
+    "nn_argmin": [_VP, _CI, _VP, _CI, _VP, _VP, _VP],
+    # q, nq, r, nr, idx, sq, stream
+    "nn_matmul": [_VP, _CI, _VP, _CI, _VP, _VP, _VP],
+    # mode, q, nq, rt, nt, nr, sq, q_sel, n_sel, stream
+    "nn_gather": [_CI, _VP, _CI, _VP, _VP, _CI, _VP, _VP, _VP, _VP],
+}
+
+
+def source_path(name: str) -> pathlib.Path:
+    if name not in KERNELS:
+        raise KeyError(f"unknown kernel {name!r}; have {sorted(KERNELS)}")
+    return _PKG / "csrc" / f"{name}.cu"
 
 
 def _nvcc() -> str:
@@ -38,38 +56,64 @@ def _nvcc() -> str:
     return found
 
 
-def compile_library() -> tuple[pathlib.Path, str, float]:
-    """Compile SOURCE unless a library for its hash exists.
+def _library_path(name: str) -> pathlib.Path:
+    src = source_path(name)
+    key = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"{name}-{key[:16]}.so"
 
-    Returns (library path, nvcc's output including ``-Xptxas -v``'s
-    register and shared-memory report, seconds spent compiling — 0.0 on a
-    cache hit)."""
-    key = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    lib = BUILD_DIR / f"{SOURCE.stem}-{key[:16]}.so"
-    if lib.exists():
-        return lib, "", 0.0
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
-    os.replace(tmp, lib)  # atomic: a concurrent build never sees half a file
-    return lib, log, seconds
+
+def compile_libraries(names=None) -> dict[str, tuple[pathlib.Path, str, float]]:
+    """Compile every named kernel (default: all) that has no library for
+    its hash yet, one nvcc process per source, all started together.
+
+    Returns {name: (library path, nvcc's output including ``-Xptxas -v``'s
+    register and shared-memory report, seconds that nvcc ran — 0.0 on a
+    cache hit)}.  Raises if any build fails."""
+    names = list(KERNELS) if names is None else list(names)
+    out, running = {}, []
+    for name in names:
+        lib = _library_path(name)
+        if lib.exists():
+            out[name] = (lib, "", 0.0)
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source_path(name))]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        running.append((name, lib, tmp, cmd, proc, time.perf_counter()))
+    failures = []
+    for name, lib, tmp, cmd, proc, t0 in running:
+        log, _ = proc.communicate()
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            failures.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
+            continue
+        os.replace(tmp, lib)  # atomic: a concurrent build never sees half a file
+        out[name] = (lib, log, seconds)
+    if failures:
+        raise RuntimeError("\n".join(failures))
+    return out
 
 
 @functools.cache
-def load_library() -> ctypes.CDLL:
-    """Build (if needed) and load the nn_argmin kernel library."""
-    path, _, _ = compile_library()
+def load_library(name: str) -> ctypes.CDLL:
+    """Build (if needed) and load one kernel's library."""
+    path, _, _ = compile_libraries([name])[name]
     lib = ctypes.CDLL(str(path))
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.nn_argmin_launch.argtypes = [vp, ci, vp, ci, vp, vp, vp]
-    lib.nn_argmin_launch.restype = ci
-    lib.nn_argmin_error_string.argtypes = [ci]
-    lib.nn_argmin_error_string.restype = ctypes.c_char_p
+    launch = getattr(lib, f"{name}_launch")
+    launch.argtypes = KERNELS[name]
+    launch.restype = _CI
+    err = getattr(lib, f"{name}_error_string")
+    err.argtypes = [_CI]
+    err.restype = ctypes.c_char_p
     return lib
+
+
+def launch(name: str, *args) -> None:
+    """Call ``<name>_launch(*args)`` and raise on a CUDA error code."""
+    lib = load_library(name)
+    err = getattr(lib, f"{name}_launch")(*args)
+    if err != 0:
+        msg = getattr(lib, f"{name}_error_string")(err).decode(errors="replace")
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err} ({msg})")

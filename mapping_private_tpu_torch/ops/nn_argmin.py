@@ -85,7 +85,7 @@ def nn_argmin_prepared(
 
 def _launch(q: torch.Tensor, rt: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     global launches
-    from mapping_private_tpu_torch._build import load_library
+    from mapping_private_tpu_torch._build import launch
 
     nq, nr = q.shape[0], rt.shape[1]
     if q.numel() > _INT_MAX or rt.numel() > _INT_MAX:
@@ -94,14 +94,8 @@ def _launch(q: torch.Tensor, rt: torch.Tensor) -> Tuple[torch.Tensor, torch.Tens
     sq = torch.empty((nq,), dtype=torch.float32, device=q.device)
     if nq == 0:
         return idx, sq
-    lib = load_library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.nn_argmin_launch(
-            q.data_ptr(), nq, rt.data_ptr(), nr, idx.data_ptr(), sq.data_ptr(), stream
-        )
-    if err != 0:
-        msg = lib.nn_argmin_error_string(err).decode(errors="replace")
-        raise RuntimeError(f"nn_argmin kernel launch failed: CUDA error {err} ({msg})")
+        launch("nn_argmin", q.data_ptr(), nq, rt.data_ptr(), nr, idx.data_ptr(), sq.data_ptr(), stream)
     launches += 1
     return idx, sq

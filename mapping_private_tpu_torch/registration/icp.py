@@ -10,17 +10,25 @@ sweeps queue up without a sync.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from mapping_private_tpu_torch.core.cloud import PAD_COORD
 from mapping_private_tpu_torch.core.linalg import cholesky_solve_unrolled
 from mapping_private_tpu_torch.core.se3 import se3_apply, se3_exp
-from mapping_private_tpu_torch.ops.neighbors import knn_bruteforce
+from mapping_private_tpu_torch.ops.neighbors import build_grid_hash, knn_bruteforce, nn_grid_1nn
 from mapping_private_tpu_torch.ops.nn_argmin import (
     nn_argmin_prepared,
     prepare_nn_ref_argmin,
+)
+from mapping_private_tpu_torch.ops.tiled_nn import (
+    build_compact_tiles,
+    check_lattice_dims,
+    compact_nn_1nn,
+    lattice_occupancy,
+    masked_bounds,
 )
 
 
@@ -78,6 +86,12 @@ def icp_point_to_plane(
     huber_delta: float = 0.05,
     damping: float = 1e-6,
     nn_backend: str = "auto",
+    grid_cell: float = 0.25,
+    cap_per_cell: int = 16,
+    tile_origin: Optional[Tuple[float, float, float]] = None,
+    tile_dims: Optional[Tuple[int, int, int]] = None,
+    max_tiles: int = 0,
+    rebucket_sweeps: Optional[int] = None,
 ) -> ICPResult:
     """Align source onto target; runs on the device the tensors are on.
 
@@ -87,7 +101,13 @@ def icp_point_to_plane(
     nn_backend: 'auto' — exact argmin NN (ops/nn_argmin.py): the CUDA
     kernel for CUDA tensors, its plain version for CPU tensors; 'xla' —
     the dense brute force of ops/neighbors.py (the JAX package's name for
-    it).  'grid' and 'tiled' are not ported yet.
+    it); 'grid' — the grid-hash stencil of ops/neighbors.py; 'tiled' —
+    the compact occupied-tiles engine of ops/tiled_nn.py, the big-cloud
+    path with N·27·cap work, on the lattice (tile_origin, tile_dims) with
+    max_tiles bucket rows (use icp_point_to_plane_tiled to size them from
+    the clouds).  grid_cell is the cell size of 'grid' and the tile size
+    of 'tiled' (must be ≥ the largest correspondence distance you care
+    about); cap_per_cell the points kept per cell or tile.
     """
     if nn_backend == "auto":
         tgt_padded = torch.where(tgt_mask[:, None], tgt_xyz, PAD_COORD)
@@ -105,9 +125,36 @@ def icp_point_to_plane(
             return idx[:, 0], sq[:, 0]
 
     elif nn_backend == "grid":
-        raise NotImplementedError("nn_backend='grid': the grid hash is ROADMAP §1 item 2")
+        grid = build_grid_hash(tgt_xyz, tgt_mask, grid_cell)
+
+        def nn_fn(p):
+            return nn_grid_1nn(grid, p, cap_per_cell=cap_per_cell)
+
     elif nn_backend == "tiled":
-        raise NotImplementedError("nn_backend='tiled': the tiled engine is ROADMAP §1 item 5")
+        if tile_origin is None or tile_dims is None:
+            raise ValueError(
+                "nn_backend='tiled' needs tile_origin/tile_dims — "
+                "call icp_point_to_plane_tiled(...) instead")
+        if max_tiles <= 0:
+            raise NotImplementedError(
+                "nn_backend='tiled' with max_tiles=0 is the dense-lattice TileSet engine: "
+                "ROADMAP §1 item 6")
+        if rebucket_sweeps is not None:
+            raise NotImplementedError(
+                "rebucket_sweeps (segmented re-bucketing with refresh_compact_coords): "
+                "ROADMAP §1 item 6")
+        # the target is bucketed once; the queries are re-bucketed every
+        # sweep at their current pose
+        origin = torch.as_tensor(tile_origin, dtype=torch.float32, device=tgt_xyz.device)
+        tgt_tiles = build_compact_tiles(
+            tgt_xyz, tgt_mask, origin, grid_cell, tile_dims, cap_per_cell, max_tiles)
+
+        def nn_fn(p):
+            q_tiles = build_compact_tiles(
+                p, src_mask, origin, grid_cell, tile_dims, cap_per_cell, max_tiles,
+                query_only=True)
+            return compact_nn_1nn(tgt_tiles, q_tiles)
+
     else:
         raise ValueError(f"unknown nn_backend {nn_backend!r}")
 
@@ -124,6 +171,60 @@ def icp_point_to_plane(
         cnts.append(cnt)
     per_iter = torch.stack(rmses)
     return ICPResult(transform=T, rmse=per_iter[-1], num_corr=cnts[-1], per_iter_rmse=per_iter)
+
+
+def _lattice_geom(bt, bs, t):
+    """Union lattice geometry from two (lo, hi) bounds pairs, on the
+    device, so the sizing chain syncs once (see icp_point_to_plane_tiled)."""
+    lo = torch.minimum(bt[0], bs[0]) - 2.0 * t
+    hi = torch.maximum(bt[1], bs[1]) + 2.0 * t
+    dims = torch.ceil((hi - lo) / t).to(torch.int32)
+    return lo, dims
+
+
+def icp_point_to_plane_tiled(
+    src_xyz, src_mask, tgt_xyz, tgt_mask, tgt_normals,
+    tile_size: float = 0.25, cap_per_cell: int = 256, **kwargs
+) -> ICPResult:
+    """Big-cloud ICP: sizes the tile lattice AND the occupied-tile slot
+    capacity from the clouds' bounds and occupancy, then runs the solver
+    with the 'tiled' NN backend (compact occupied-tile blocks — see
+    ops/tiled_nn.py CompactTiles).
+
+    Occupied-tile capacity contract: max_tiles MUST cover every
+    target-occupied tile — a spilled TARGET tile silently vanishes from
+    slot_of and compact_nn_1nn returns a valid-looking *farther*
+    neighbour, not −1.  Only QUERY-side spill degrades safely to
+    no-correspondence.  It is sized from the union of target and initial
+    source occupancy plus 50% margin for source motion, rounded up to a
+    power of two.  The per-cell cap carries the same target-side
+    contract, so it is raised (to a multiple of 128) to cover the densest
+    target cell.
+
+    The whole sizing chain — bounds → union geometry → both occupancies —
+    runs on the device and is read by the host in ONE transfer."""
+    t = torch.tensor(tile_size, dtype=torch.float32, device=src_xyz.device)
+    lo_dev, dims_dev = _lattice_geom(
+        masked_bounds(tgt_xyz, tgt_mask), masked_bounds(src_xyz, src_mask), t)
+    ot = lattice_occupancy(tgt_xyz, tgt_mask, lo_dev, t, dims_dev)
+    os_ = lattice_occupancy(src_xyz, src_mask, lo_dev, t, dims_dev)
+    stats = torch.cat([lo_dev.double(), dims_dev.double(), torch.stack([*ot, *os_]).double()])
+    stats = stats.cpu().numpy()  # the one sync
+    lo = stats[:3].astype(np.float32)
+    dims = tuple(int(v) for v in stats[3:6])
+    check_lattice_dims(dims, tile_size)
+    occ_t, maxcell_t, occ_s = int(stats[6]), int(stats[7]), int(stats[8])
+    occ = max(occ_t, occ_s)
+    max_tiles = 1 << int(np.ceil(np.log2(max(int(1.5 * occ), 64))))
+    if max_tiles < occ_t:
+        raise RuntimeError(f"max_tiles {max_tiles} does not cover the target's {occ_t} occupied tiles")
+    cap = max(cap_per_cell, -(-maxcell_t // 128) * 128)
+    return icp_point_to_plane(
+        src_xyz, src_mask, tgt_xyz, tgt_mask, tgt_normals,
+        nn_backend="tiled", grid_cell=tile_size, cap_per_cell=cap,
+        tile_origin=tuple(float(v) for v in lo), tile_dims=dims,
+        max_tiles=max_tiles, **kwargs
+    )
 
 
 def ate_rmse(traj_a: torch.Tensor, traj_b: torch.Tensor) -> torch.Tensor:

@@ -1,9 +1,10 @@
 """Port parity: registration/icp.py against the JAX package on the two
 synthetic cases of tests/test_icp.py.
 
-The JAX side runs ``nn_backend="xla"``: its ``pallas`` route cannot run
-on the CPU outside interpret mode, and both routes compute the same GN
-from exact correspondences.  Both packages get the same target cloud and
+For the exact backends the JAX side runs ``nn_backend="xla"``: its
+``pallas`` route cannot run on the CPU outside interpret mode, and both
+routes compute the same GN from exact correspondences.  The ``grid`` and
+``tiled`` backends run against the JAX package's own.  Both packages get the same target cloud and
 the same (JAX-estimated) normals.  Tolerances: transform within 1e-5,
 per-sweep RMSE within rtol 1e-4, correspondence count exact.  Once a run
 has converged its RMSE is f32 rounding noise (~2e-8 for coordinates of
@@ -70,11 +71,94 @@ def test_icp_dead_rows_match_jax(backend):
     assert int(rt.num_corr) == int(rj.num_corr)
 
 
-@pytest.mark.parametrize("backend", ["grid", "tiled"])
-def test_unported_backends_raise(backend):
+@pytest.mark.parametrize("what", ["tiled", "tiled_rebucket"])
+def test_unported_backends_raise(what):
+    """What is still queued: the dense-lattice engine (max_tiles=0) and
+    the segmented re-bucketing mode."""
     arrays, _ = _inputs(0, [0.0] * 6)
+    kw = dict(nn_backend="tiled", tile_origin=(-3.0, -3.0, -3.0), tile_dims=(24, 24, 24))
+    if what == "tiled_rebucket":
+        kw.update(max_tiles=64, rebucket_sweeps=2)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ticp.icp_point_to_plane(*[torch.tensor(a) for a in arrays], nn_backend=backend)
+        ticp.icp_point_to_plane(*[torch.tensor(a) for a in arrays], **kw)
+    with pytest.raises(ValueError, match="tile_origin"):
+        ticp.icp_point_to_plane(*[torch.tensor(a) for a in arrays], nn_backend="tiled")
+    with pytest.raises(ValueError, match="unknown nn_backend"):
+        ticp.icp_point_to_plane(*[torch.tensor(a) for a in arrays], nn_backend="kdtree")
+
+
+def _assert_same_run(rt, rj, T_true):
+    """Transform within 1e-5, per-sweep RMSE within rtol 1e-4 (or 1e-7
+    absolute once converged), correspondence count exact."""
+    np.testing.assert_allclose(rt.transform.numpy(), np.asarray(rj.transform), rtol=0, atol=1e-5)
+    np.testing.assert_allclose(
+        rt.per_iter_rmse.numpy(), np.asarray(rj.per_iter_rmse), rtol=1e-4, atol=1e-7)
+    assert int(rt.num_corr) == int(rj.num_corr)
+    np.testing.assert_allclose(rt.transform.numpy(), T_true, atol=5e-3)
+
+
+@pytest.mark.parametrize("dead_every", [0, 5])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_icp_grid_backend_matches_jax(case, dead_every):
+    """Both packages run their grid hash (cell 0.3, 32 per cell)."""
+    seed, xi, iters, mcd = CASES[case]
+    arrays, T_true = _inputs(seed, xi, dead_every)
+    kw = dict(iters=iters, max_corr_dist=mcd, nn_backend="grid", grid_cell=0.3, cap_per_cell=32)
+    rj = jicp.icp_point_to_plane(*[jnp.asarray(a) for a in arrays], **kw)
+    rt = ticp.icp_point_to_plane(*[torch.tensor(a) for a in arrays], **kw)
+    _assert_same_run(rt, rj, T_true)
+
+
+@pytest.mark.parametrize("dead_every", [0, 5])
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_icp_tiled_matches_jax(case, dead_every):
+    """Both packages size their lattice from the clouds and run the
+    compact occupied-tiles engine, re-bucketing the queries every sweep."""
+    seed, xi, iters, mcd = CASES[case]
+    arrays, T_true = _inputs(seed, xi, dead_every)
+    kw = dict(tile_size=0.3, cap_per_cell=128, iters=iters, max_corr_dist=0.3)
+    rj = jicp.icp_point_to_plane_tiled(*[jnp.asarray(a) for a in arrays], **kw)
+    rt = ticp.icp_point_to_plane_tiled(*[torch.tensor(a) for a in arrays], **kw)
+    _assert_same_run(rt, rj, T_true)
+
+
+def test_tiled_matches_exact_backend_within_the_port():
+    """Correspondences within the tile size are the exact ones, so the
+    tiled run lands where the exact-argmin run does."""
+    seed, xi, iters, _ = CASES["grid_path_case"]
+    arrays, _ = _inputs(seed, xi)
+    ts = [torch.tensor(a) for a in arrays]
+    ra = ticp.icp_point_to_plane(*ts, iters=iters, max_corr_dist=0.3)
+    rt = ticp.icp_point_to_plane_tiled(*ts, tile_size=0.3, cap_per_cell=128, iters=iters, max_corr_dist=0.3)
+    np.testing.assert_allclose(rt.transform.numpy(), ra.transform.numpy(), rtol=0, atol=1e-6)
+    assert int(rt.num_corr) == int(ra.num_corr)
+
+
+def test_tiled_sizing_syncs_once(monkeypatch):
+    """icp_point_to_plane_tiled reads the device exactly once (bounds,
+    lattice dims and both occupancies in one transfer) and the sweeps
+    read nothing: the counterpart of the JAX package's one-device_get
+    guard."""
+    rng = np.random.default_rng(0)
+    n = 4096
+    xy = rng.uniform(0, 2.0, (n, 2))
+    tgt = np.column_stack([xy, 0.2 * np.sin(xy[:, 0] * 3)]).astype(np.float32)
+    src = (tgt + rng.normal(0, 0.005, tgt.shape)).astype(np.float32)
+    nrm = np.tile(np.asarray([0, 0, 1.0], np.float32), (n, 1))
+    mask = torch.ones(n, dtype=torch.bool)
+    args = (torch.from_numpy(src), mask, torch.from_numpy(tgt), mask, torch.from_numpy(nrm))
+
+    calls = []
+    real_cpu = torch.Tensor.cpu
+    monkeypatch.setattr(torch.Tensor, "cpu", lambda self, *a, **k: (calls.append(1), real_cpu(self, *a, **k))[1])
+    for name in ("item", "tolist", "__bool__", "__float__", "__int__", "__index__"):
+        def forbid(self, *a, _n=name, **k):
+            raise AssertionError(f"host read through Tensor.{_n}")
+        monkeypatch.setattr(torch.Tensor, name, forbid)
+    r = ticp.icp_point_to_plane_tiled(*args, tile_size=0.25, iters=2)
+    monkeypatch.undo()
+    assert len(calls) == 1, f"sizing used {len(calls)} host reads (contract: 1)"
+    assert float(r.rmse) < 0.02
 
 
 def test_ate_rmse_matches():
