@@ -276,7 +276,7 @@ def main() -> int:
     for name, (lib_path, log, nvcc_s) in built.items():
         print(f"  {name}: {lib_path.name} nvcc {nvcc_s:.2f} s")
         for line in log.splitlines():
-            if "ptxas info" in line and ("Used" in line or "Compiling" in line or "spill" in line):
+            if ("ptxas info" in line and ("Used" in line or "Compiling" in line)) or "spill" in line:
                 print(f"    {line.strip()}")
 
     # -- phase 2: kernels vs plain on the card -------------------------------
