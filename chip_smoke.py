@@ -60,6 +60,11 @@ Phases (any failure exits non-zero before the result line):
    icp-iters times by that run.  Then per-scan wall times (normals +
    track), warm.
 
+``python3 chip_smoke.py --profile`` builds the kernels and then, instead
+of phases 2-6, profiles with torch.profiler one warm tracker step of
+phase 6 and phase 5's tiled ICP call (device time by kernel, launches,
+the device's idle share); it prints no result line.
+
 Every launch count is set to 0 just before a path is driven and read just
 after.  Prints, before the last line, one JSON line {"kernels": [...]}
 with each kernel's launches on the paths, its largest |sq| disagreement
@@ -97,10 +102,10 @@ SM_LANES = 132 * 128
 HBM_BYTES_PER_S = 3.35e12
 # FP32 issue slots per query-ref pair, from each kernel's inner loop:
 # nn_argmin 3 sub + 3 mul + 2 add + compare + select; nn_matmul 3 mul +
-# 3 add + 1 fma + compare + select; nn_gather adds the tie compare and the
-# hit count to either form.
-SLOTS_PER_PAIR = {"nn_argmin": 10, "nn_matmul": 9, "nn_gather:vpu": 12,
-                  "nn_gather:mxu": 11, "nn_gather:mxu_fast": 11}
+# 3 add + 1 fma + compare + select; nn_gather needs no more per pair in
+# either form (its ties are found in one window, after the minimum).
+SLOTS_PER_PAIR = {"nn_argmin": 10, "nn_matmul": 9, "nn_gather:vpu": 10,
+                  "nn_gather:mxu": 9, "nn_gather:mxu_fast": 9}
 KERNEL_FILES = {
     "nn_argmin": ("mapping_private_tpu_torch/csrc/nn_argmin.cu", "mapping_private_tpu/ops/pallas_nn.py:245"),
     "nn_matmul": ("mapping_private_tpu_torch/csrc/nn_matmul.cu", "mapping_private_tpu/ops/pallas_nn.py:38"),
@@ -223,12 +228,105 @@ def make_chain(se3_exp, torch):
     return scans, np.stack(steps)
 
 
+def big_pair():
+    """bench.py's big-cloud shape: N_BIG points on [0,5]^2, a noisy copy as
+    the source, and the surface's analytic unit normals (with them all six
+    degrees of a twist are observable).  Returns (tgt, src, normals)."""
+    rng = np.random.default_rng(0)
+    xy = rng.uniform(0, 5.0, (N_BIG, 2))
+    z = 0.3 * np.sin(xy[:, 0] * 2) + 0.2 * np.cos(xy[:, 1] * 3) + rng.normal(0, 0.005, N_BIG)
+    tgt = np.column_stack([xy, z]).astype(np.float32)
+    src = (tgt + rng.normal(0, 0.01, tgt.shape)).astype(np.float32)
+    nrm = np.column_stack([-0.6 * np.cos(2 * xy[:, 0]), 0.6 * np.sin(3 * xy[:, 1]), np.ones(N_BIG)])
+    return tgt, src, (nrm / np.linalg.norm(nrm, axis=1, keepdims=True)).astype(np.float32)
+
+
+def map_scan(k: int, se3_exp, torch):
+    """Scan k of the mapping loop: (sensor pose, a fresh 20,000-point
+    sampling of the world surface seen from it)."""
+    T = se3_exp(torch.tensor([0.05 * k, 0.01 * k, 0.0, 0.0, 0.0, 0.02 * k])).numpy().astype(np.float64)
+    world = surface(N_POINTS, 100 + k).astype(np.float64)
+    return T, ((world - T[:3, 3]) @ T[:3, :3]).astype(np.float32)
+
+
 def bits(a: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(a).view(np.int32)
 
 
-def main() -> int:
+def profile_call(torch, name: str, fn, smi: str):
+    """One warm call of ``fn`` under torch.profiler: its wall time
+    unprofiled (host clock ending in a sync), the sum of device kernel
+    time, the device's idle share (1 - device time / wall time), the number
+    of kernel launches and the kernels that take the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(2):
+        fn()
+    torch.cuda.synchronize()
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = {}
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            t, c = kernels.get(ev.name, (0.0, 0))
+            kernels[ev.name] = (t + ev.device_time_total / 1e3, c + 1)  # us -> ms
+    dev_ms = sum(t for t, _ in kernels.values())
+    n_launch = sum(c for _, c in kernels.values())
+    wall = statistics.median(walls)
+    print(f"== {name} [{smi}]")
+    print(f"wall (unprofiled, median of {[round(w, 2) for w in walls]}): {wall:.2f} ms; device kernel time "
+          f"{dev_ms:.2f} ms in {n_launch} launches; device idle share {1 - dev_ms / wall:.3f}")
+    if dev_ms == 0.0:
+        fail("the profiler recorded no device time")
+    for kname, (t, c) in sorted(kernels.items(), key=lambda kv: -kv[1][0])[:12]:
+        print(f"  {t:9.3f} ms {100 * t / dev_ms:5.1f}% {c:6d} x  {kname[:100]}")
+
+
+def profile_paths(torch, dev, smi: str):
+    """--profile: where the time goes in a tracker step of phase 6 (scan 4
+    against the map of scans 0-3) and in phase 5's tiled ICP call."""
+    from mapping_private_tpu_torch.core.cloud import PointCloud
+    from mapping_private_tpu_torch.core.se3 import se3_exp
+    from mapping_private_tpu_torch.ops.normals import estimate_normals
+    from mapping_private_tpu_torch.registration.icp import icp_point_to_plane_tiled
+    from mapping_private_tpu_torch.registration.scan_to_map import ScanToMapTracker, TrackerConfig
+
+    clouds = [PointCloud.from_numpy(map_scan(k, se3_exp, torch)[1], device=dev) for k in range(5)]
+    tracker = ScanToMapTracker(TrackerConfig(icp_iters=MAP_ICP_ITERS), device=dev)
+    for cloud in clouds[:4]:
+        c = estimate_normals(cloud, k=12)
+        tracker.track(c.padded_xyz(), c.channel("normal"), c.mask)
+    state = (tracker.map, tracker.pose, list(tracker.keyframe_poses), list(tracker.edges))
+
+    def step():
+        tracker.map, tracker.pose = state[0], state[1]
+        tracker.keyframe_poses, tracker.edges = list(state[2]), list(state[3])
+        c = estimate_normals(clouds[4], k=12)
+        tracker.track(c.padded_xyz(), c.channel("normal"), c.mask)
+
+    profile_call(torch, f"tracker step: normals k=12 + track ({MAP_ICP_ITERS} sweeps), {N_POINTS}-point scan, "
+                 f"map of {int(tracker.map.count())} points", step, smi)
+
+    tgt, src, nrm = (torch.from_numpy(a).to(dev) for a in big_pair())
+    ones = torch.ones(N_BIG, dtype=torch.bool, device=dev)
+    profile_call(torch, f"icp_point_to_plane_tiled: {N_BIG} points, 6 sweeps, tile {BIG_RADIUS}",
+                 lambda: icp_point_to_plane_tiled(src, ones, tgt, ones, nrm, tile_size=BIG_RADIUS,
+                                                  cap_per_cell=128, iters=6), smi)
+
+
+def main(argv=None) -> int:
     import torch
+
+    argv = sys.argv[1:] if argv is None else argv
+    if argv not in ([], ["--profile"]):
+        fail(f"usage: chip_smoke.py [--profile], got {argv}")
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this check needs an NVIDIA GPU")
@@ -278,6 +376,10 @@ def main() -> int:
         for line in log.splitlines():
             if ("ptxas info" in line and ("Used" in line or "Compiling" in line)) or "spill" in line:
                 print(f"    {line.strip()}")
+
+    if argv:
+        profile_paths(torch, dev, smi)
+        return 0
 
     # -- phase 2: kernels vs plain on the card -------------------------------
     results = {}  # kernel name -> dict(max_abs_err, ms, plain_ms, bound_ms, bound_by)
@@ -499,12 +601,8 @@ def main() -> int:
             fail(f"{name}: its entry point did not launch the kernel")
 
     # -- phase 5: the front door and tiled ICP at 200k ----------------------------
-    rng = np.random.default_rng(0)
-    xy = rng.uniform(0, 5.0, (N_BIG, 2))
-    z = 0.3 * np.sin(xy[:, 0] * 2) + 0.2 * np.cos(xy[:, 1] * 3) + rng.normal(0, 0.005, N_BIG)
-    big_tgt_np = np.column_stack([xy, z]).astype(np.float32)
-    big_src_np = (big_tgt_np + rng.normal(0, 0.01, big_tgt_np.shape)).astype(np.float32)
-    big_tgt, big_src = to_dev(big_tgt_np), to_dev(big_src_np)
+    big_tgt_np, big_src_np, big_nrm_np = big_pair()
+    big_tgt, big_src, big_nrm = to_dev(big_tgt_np), to_dev(big_src_np), to_dev(big_nrm_np)
     ones = torch.ones(N_BIG, dtype=torch.bool, device=dev)
     reset_counts()
     walls, nn_out = {}, {}
@@ -537,9 +635,6 @@ def main() -> int:
     T_big = se3_exp(xi_big).numpy().astype(np.float64)
     moved = ((big_src_np.astype(np.float64) - T_big[:3, 3]) @ T_big[:3, :3]).astype(np.float32)
     moved_d = to_dev(moved)
-    # the surface's analytic normals, so that all six degrees are observable
-    nrm_np = np.column_stack([-0.6 * np.cos(2 * xy[:, 0]), 0.6 * np.sin(3 * xy[:, 1]), np.ones(N_BIG)])
-    big_nrm = to_dev((nrm_np / np.linalg.norm(nrm_np, axis=1, keepdims=True)).astype(np.float32))
     icp_walls = []
     for _ in range(2):
         torch.cuda.synchronize()
@@ -558,13 +653,11 @@ def main() -> int:
         fail("tiled ICP at 200k did not converge")
 
     # -- phase 6: the mapping loop ---------------------------------------------
-    poses = [se3_exp(torch.tensor([0.05 * k, 0.01 * k, 0.0, 0.0, 0.0, 0.02 * k])).numpy().astype(np.float64)
-             for k in range(N_MAP_SCANS)]
+    poses, map_scans = zip(*(map_scan(k, se3_exp, torch) for k in range(N_MAP_SCANS)))
     with tempfile.TemporaryDirectory() as td:
         paths = [f"{td}/scan{k}.pcd" for k in range(N_MAP_SCANS)]
-        for k, (p, T) in enumerate(zip(paths, poses)):
-            world = surface(N_POINTS, 100 + k).astype(np.float64)  # a fresh sampling of the world
-            save_pcd(p, {"xyz": ((world - T[:3, 3]) @ T[:3, :3]).astype(np.float32)})
+        for p, scan in zip(paths, map_scans):
+            save_pcd(p, {"xyz": scan})
         buf = io.StringIO()
         reset_counts()
         t0 = time.perf_counter()

@@ -29,14 +29,21 @@
 //
 // What the design does about that: the TPU kernel gathers with a one-hot
 // matrix product because its hardware has no cheap indexed read; here the
-// gather is an indexed read of the winner.  One thread owns one query.  The
-// hot loop keeps only (window minimum, first index, hit count) in
-// registers.  Refs stream through shared memory as in nn_argmin.cu (for the
-// expansion modes r2 is staged too, computed once per ref and not per pair;
-// mxu_fast stages the bf16-rounded coordinates).  At the end of each window
-// the thread folds it into its carry; only when the hit count is above one
-// does it walk the window again to sum the tied refs, read by index from
-// device memory.  A single winner's row is read once, after the last tile.
+// gather is an indexed read of the winner.  The tie rule needs nothing per
+// pair either: the window that ends up carried is the first one that holds
+// the global minimum, and the first ref that reaches the global minimum
+// lies in it.  So one thread owns one query and its hot loop is the plain
+// running (minimum, first index) with a strict '<' of nn_argmin.cu and
+// nn_matmul.cu, with no window structure, hit count or tie compare.  Refs
+// stream through shared memory as there (for the expansion modes r2 is
+// staged too, computed once per ref and not per pair; mxu_fast stages the
+// bf16-rounded coordinates).  After the last tile the rest of the winner's
+// window is walked once, from the winner to the window's end (at most
+// kTieWindow refs, read by index from device memory, d2 recomputed with the
+// same operations), and the refs that tie are counted; the lanes of a warp
+// share each query's walk so that the loads are coalesced.  A single
+// winner's row is then read once; only a tie walks the window a second time,
+// in its own thread, to average in ascending index.
 // Products and sums use __fmul_rn/__fadd_rn so nvcc cannot contract them
 // and d2 matches the plain version bit for bit (fma(-2, cross, q2 + r2) has
 // an exact product, so it rounds like the two-step form).  The tail of the
@@ -52,7 +59,7 @@ enum Mode { kVpu = 0, kMxu = 1, kMxuFast = 2 };
 
 constexpr int kBlock = 128;           // queries (threads) per block
 constexpr int kTieWindow = 512;       // the reference's tie window, in refs
-constexpr int kTile = 4 * kTieWindow; // refs per shared-memory tile (32 KB at most)
+constexpr int kTile = 2048;          // refs per shared-memory tile (32 KB at most)
 
 __device__ __forceinline__ float sq_norm(float x, float y, float z) {
   return __fadd_rn(__fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y)), __fmul_rn(z, z));
@@ -80,15 +87,24 @@ __device__ __forceinline__ float dist2(float cx, float cy, float cz, float q2,
   return __fmaf_rn(-2.0f, cross, __fadd_rn(q2, r2));
 }
 
-// Selects, not branches: with an if/else here the threads of a warp take
-// different paths ref by ref and the kernel runs at half the speed.
-__device__ __forceinline__ void consider(float d, int j, float& wmin, int& wi,
-                                         int& cnt) {
-  const bool lt = d < wmin;
-  const bool eq = d == wmin;
-  cnt = lt ? 1 : cnt + (eq ? 1 : 0);
-  wi = lt ? j : wi;
-  wmin = lt ? d : wmin;
+// d2 of ref j read from device memory, staged as the tile loop stages it.
+template <int MODE>
+__device__ __forceinline__ float ref_dist2(const float* __restrict__ rt, size_t stride,
+                                           size_t j, float cx, float cy, float cz,
+                                           float q2) {
+  const float x = __ldg(rt + j), y = __ldg(rt + stride + j), z = __ldg(rt + 2 * stride + j);
+  if (MODE == kVpu) return dist2<MODE>(cx, cy, cz, q2, x, y, z, 0.f);
+  const float r2 = sq_norm(x, y, z);
+  if (MODE == kMxuFast)
+    return dist2<MODE>(cx, cy, cz, q2, bf16_round(x), bf16_round(y), bf16_round(z), r2);
+  return dist2<MODE>(cx, cy, cz, q2, x, y, z, r2);
+}
+
+__device__ __forceinline__ void consider(float d, int j, float& best_d, int& best_i) {
+  if (d < best_d) {
+    best_d = d;
+    best_i = j;
+  }
 }
 
 template <int MODE>
@@ -118,9 +134,6 @@ __global__ void __launch_bounds__(kBlock)
   const size_t stride = static_cast<size_t>(nr);
   float best_d = CUDART_INF_F;
   int best_i = 0;
-  int best_cnt = 1;
-  float bq0 = 0.f, bq1 = 0.f, bq2 = 0.f, bn0 = 0.f, bn1 = 0.f, bn2 = 0.f;
-
   for (int base = 0; base < nr; base += kTile) {
     const int n = min(kTile, nr - base);
     const int n4 = (n + 3) & ~3;  // walk whole float4s; tail padded below
@@ -142,66 +155,80 @@ __global__ void __launch_bounds__(kBlock)
     const float4* sy4 = reinterpret_cast<const float4*>(sy);
     const float4* sz4 = reinterpret_cast<const float4*>(sz);
     const float4* s24 = reinterpret_cast<const float4*>(s2);
-
-    for (int w0 = 0; w0 < n4; w0 += kTieWindow) {
-      const int w1 = min(w0 + kTieWindow, n4);
-      float wmin = CUDART_INF_F;
-      int wi = 0;
-      int cnt = 0;
 #pragma unroll 2
-      for (int j4 = w0 / 4; j4 < w1 / 4; ++j4) {
-        const float4 x = sx4[j4], y = sy4[j4], z = sz4[j4];
-        float4 w = make_float4(0.f, 0.f, 0.f, 0.f);
-        if (MODE != kVpu) w = s24[j4];
-        const int j = 4 * j4;
-        consider(dist2<MODE>(cx, cy, cz, q2, x.x, y.x, z.x, w.x), j, wmin, wi, cnt);
-        consider(dist2<MODE>(cx, cy, cz, q2, x.y, y.y, z.y, w.y), j + 1, wmin, wi, cnt);
-        consider(dist2<MODE>(cx, cy, cz, q2, x.z, y.z, z.z, w.z), j + 2, wmin, wi, cnt);
-        consider(dist2<MODE>(cx, cy, cz, q2, x.w, y.w, z.w, w.w), j + 3, wmin, wi, cnt);
-      }
-      if (wmin < best_d) {
-        best_d = wmin;
-        best_i = base + wi;
-        best_cnt = cnt;
-        if (cnt > 1) {
-          // exact tie inside this window: average the tied refs
-          const float wgt = __fdiv_rn(1.0f, static_cast<float>(cnt));
-          bq0 = bq1 = bq2 = bn0 = bn1 = bn2 = 0.f;
-          for (int j = wi; j < w1; ++j) {
-            const float r2 = MODE != kVpu ? s2[j] : 0.f;
-            if (dist2<MODE>(cx, cy, cz, q2, sx[j], sy[j], sz[j], r2) == wmin) {
-              const size_t g = static_cast<size_t>(base + j);
-              bq0 = __fadd_rn(bq0, __fmul_rn(wgt, rt[g]));
-              bq1 = __fadd_rn(bq1, __fmul_rn(wgt, rt[stride + g]));
-              bq2 = __fadd_rn(bq2, __fmul_rn(wgt, rt[2 * stride + g]));
-              bn0 = __fadd_rn(bn0, __fmul_rn(wgt, nt[g]));
-              bn1 = __fadd_rn(bn1, __fmul_rn(wgt, nt[stride + g]));
-              bn2 = __fadd_rn(bn2, __fmul_rn(wgt, nt[2 * stride + g]));
-            }
-          }
-        }
+    for (int j4 = 0; j4 < n4 / 4; ++j4) {
+      const float4 x = sx4[j4], y = sy4[j4], z = sz4[j4];
+      float4 w = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (MODE != kVpu) w = s24[j4];
+      const int j = base + 4 * j4;
+      consider(dist2<MODE>(cx, cy, cz, q2, x.x, y.x, z.x, w.x), j, best_d, best_i);
+      consider(dist2<MODE>(cx, cy, cz, q2, x.y, y.y, z.y, w.y), j + 1, best_d, best_i);
+      consider(dist2<MODE>(cx, cy, cz, q2, x.z, y.z, z.z, w.z), j + 2, best_d, best_i);
+      consider(dist2<MODE>(cx, cy, cz, q2, x.w, y.w, z.w, w.w), j + 3, best_d, best_i);
+    }
+  }
+  // The carried window is the winner's; its ties lie between the winner and
+  // the window's end.  The warp counts them for one of its queries at a
+  // time: every lane takes every 32nd ref of that query's walk, so the loads
+  // are coalesced.  (Each thread walking alone reads one word per cache
+  // line: at 20,000 x 20,000 on an H100, 700 W, the vpu kernel then took
+  // 0.46-0.47 ms, with this walk 0.36 ms.)  If no ref ever won, best_d is
+  // +inf and row 0 is returned alone.
+  const unsigned kFull = 0xffffffffu;
+  const int lane = threadIdx.x & 31;
+  const int walk = live && best_d < CUDART_INF_F;
+  int cnt = 1;
+  for (int l = 0; l < 32; ++l) {
+    if (!__shfl_sync(kFull, walk, l)) continue;  // the same for the whole warp
+    const int bi = __shfl_sync(kFull, best_i, l);
+    const float bd = __shfl_sync(kFull, best_d, l);
+    const float ax = __shfl_sync(kFull, cx, l);
+    const float ay = __shfl_sync(kFull, cy, l);
+    const float az = __shfl_sync(kFull, cz, l);
+    const float a2 = __shfl_sync(kFull, q2, l);
+    const int e = min(nr, (bi / kTieWindow + 1) * kTieWindow);
+    int c = 0;
+#pragma unroll 4
+    for (int j = bi + 1 + lane; j < e; j += 32)
+      c += ref_dist2<MODE>(rt, stride, j, ax, ay, az, a2) == bd ? 1 : 0;
+    c = __reduce_add_sync(kFull, c);
+    if (lane == l) cnt += c;
+  }
+  if (!live) return;
+  const int w1 = min(nr, (best_i / kTieWindow + 1) * kTieWindow);
+  float bq0, bq1, bq2, bn0, bn1, bn2;
+  if (cnt == 1) {
+    const size_t g = static_cast<size_t>(best_i);
+    bq0 = rt[g];
+    bq1 = rt[stride + g];
+    bq2 = rt[2 * stride + g];
+    bn0 = nt[g];
+    bn1 = nt[stride + g];
+    bn2 = nt[2 * stride + g];
+  } else {
+    // exact tie inside the window: average the tied refs, ascending
+    const float wgt = __fdiv_rn(1.0f, static_cast<float>(cnt));
+    bq0 = bq1 = bq2 = bn0 = bn1 = bn2 = 0.f;
+    for (int j = best_i; j < w1; ++j) {
+      if (ref_dist2<MODE>(rt, stride, j, cx, cy, cz, q2) == best_d) {
+        const size_t g = static_cast<size_t>(j);
+        bq0 = __fadd_rn(bq0, __fmul_rn(wgt, rt[g]));
+        bq1 = __fadd_rn(bq1, __fmul_rn(wgt, rt[stride + g]));
+        bq2 = __fadd_rn(bq2, __fmul_rn(wgt, rt[2 * stride + g]));
+        bn0 = __fadd_rn(bn0, __fmul_rn(wgt, nt[g]));
+        bn1 = __fadd_rn(bn1, __fmul_rn(wgt, nt[stride + g]));
+        bn2 = __fadd_rn(bn2, __fmul_rn(wgt, nt[2 * stride + g]));
       }
     }
   }
-  if (live) {
-    if (best_cnt == 1) {
-      const size_t g = static_cast<size_t>(best_i);
-      bq0 = rt[g];
-      bq1 = rt[stride + g];
-      bq2 = rt[2 * stride + g];
-      bn0 = nt[g];
-      bn1 = nt[stride + g];
-      bn2 = nt[2 * stride + g];
-    }
-    const size_t o = 3 * static_cast<size_t>(i);
-    sq_out[i] = best_d;
-    qsel_out[o] = bq0;
-    qsel_out[o + 1] = bq1;
-    qsel_out[o + 2] = bq2;
-    nsel_out[o] = bn0;
-    nsel_out[o + 1] = bn1;
-    nsel_out[o + 2] = bn2;
-  }
+  const size_t o = 3 * static_cast<size_t>(i);
+  sq_out[i] = best_d;
+  qsel_out[o] = bq0;
+  qsel_out[o + 1] = bq1;
+  qsel_out[o + 2] = bq2;
+  nsel_out[o] = bn0;
+  nsel_out[o + 1] = bn1;
+  nsel_out[o + 2] = bn2;
 }
 
 }  // namespace

@@ -19,7 +19,7 @@ the JAX package are not ported yet.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -86,8 +86,11 @@ def build_compact_tiles(
     (see icp_point_to_plane_tiled).
 
     All points that are not kept (dead, spilled, beyond cap) are written
-    to one spare bucket row, which is sliced off; no other destination
-    is written twice, so the scatters do not depend on write order."""
+    to one spare bucket row, which is sliced off.  The scatters do not
+    depend on write order: in ``xyz``, ``valid`` and ``idx`` every kept
+    point has a destination of its own, and ``tile_id`` and ``slot_of``
+    are written once per kept point of a slot, each time with the same
+    value."""
     n = xyz.shape[0]
     dev = xyz.device
     dims = tuple(int(d) for d in dims)
@@ -256,19 +259,24 @@ def tiled_nn_for_icp(
     dims: Tuple[int, int, int],
     cap: int,
     max_tiles: int = 0,
+    query_mask: Optional[torch.Tensor] = None,
 ) -> Callable[[torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]:
     """Returns nn_fn(p) → (idx (N,), sq (N,)) closing over prebuilt target
     tiles — the ICP 'tiled' backend (compact occupied-tiles engine; the
-    query side is re-bucketed on every call with ``query_only=True``)."""
+    query side is re-bucketed on every call with ``query_only=True``).
+    Rows that ``query_mask`` (N,) marks dead take no bucket room and get
+    idx −1; without it every query row counts as live."""
     if max_tiles <= 0:
         raise NotImplementedError(
             "max_tiles=0 selects the dense-lattice TileSet engine: ROADMAP §1 item 6")
     tgt_tiles = build_compact_tiles(tgt_xyz, tgt_mask, origin, tile_size, dims, cap, max_tiles)
 
     def nn_fn(p: torch.Tensor):
-        ones = torch.ones((p.shape[0],), dtype=torch.bool, device=p.device)
+        live = query_mask
+        if live is None:
+            live = torch.ones((p.shape[0],), dtype=torch.bool, device=p.device)
         q_tiles = build_compact_tiles(
-            p, ones, origin, tile_size, dims, cap, max_tiles, query_only=True)
+            p, live, origin, tile_size, dims, cap, max_tiles, query_only=True)
         return compact_nn_1nn(tgt_tiles, q_tiles)
 
     return nn_fn

@@ -24,11 +24,10 @@ from mapping_private_tpu_torch.ops.nn_argmin import (
     prepare_nn_ref_argmin,
 )
 from mapping_private_tpu_torch.ops.tiled_nn import (
-    build_compact_tiles,
     check_lattice_dims,
-    compact_nn_1nn,
     lattice_occupancy,
     masked_bounds,
+    tiled_nn_for_icp,
 )
 
 
@@ -135,25 +134,16 @@ def icp_point_to_plane(
             raise ValueError(
                 "nn_backend='tiled' needs tile_origin/tile_dims — "
                 "call icp_point_to_plane_tiled(...) instead")
-        if max_tiles <= 0:
-            raise NotImplementedError(
-                "nn_backend='tiled' with max_tiles=0 is the dense-lattice TileSet engine: "
-                "ROADMAP §1 item 6")
         if rebucket_sweeps is not None:
             raise NotImplementedError(
                 "rebucket_sweeps (segmented re-bucketing with refresh_compact_coords): "
                 "ROADMAP §1 item 6")
         # the target is bucketed once; the queries are re-bucketed every
-        # sweep at their current pose
+        # sweep at their current pose (max_tiles=0 raises there)
         origin = torch.as_tensor(tile_origin, dtype=torch.float32, device=tgt_xyz.device)
-        tgt_tiles = build_compact_tiles(
-            tgt_xyz, tgt_mask, origin, grid_cell, tile_dims, cap_per_cell, max_tiles)
-
-        def nn_fn(p):
-            q_tiles = build_compact_tiles(
-                p, src_mask, origin, grid_cell, tile_dims, cap_per_cell, max_tiles,
-                query_only=True)
-            return compact_nn_1nn(tgt_tiles, q_tiles)
+        nn_fn = tiled_nn_for_icp(
+            tgt_xyz, tgt_mask, origin, grid_cell, tile_dims, cap_per_cell,
+            max_tiles=max_tiles, query_mask=src_mask)
 
     else:
         raise ValueError(f"unknown nn_backend {nn_backend!r}")

@@ -173,6 +173,20 @@ def test_tiled_nn_for_icp_compact_branch():
         tt.tiled_nn_for_icp(torch.from_numpy(tgt), torch.from_numpy(mask), lo, 0.25, dims, 128)
 
 
+def test_tiled_nn_for_icp_query_mask():
+    """Dead query rows get idx -1 and inf; live rows are unchanged (exact)."""
+    tgt = _cloud(2000, 7)
+    mask = np.ones(2000, bool)
+    lo, dims = _lattice(tgt, 0.25)
+    p = torch.from_numpy((tgt + np.float32(0.004)).astype(np.float32))
+    live = torch.from_numpy(np.arange(2000) % 3 != 0)
+    args = (torch.from_numpy(tgt), torch.from_numpy(mask), lo, 0.25, dims, 128)
+    i_all, s_all = tt.tiled_nn_for_icp(*args, max_tiles=128)(p)
+    i_m, s_m = tt.tiled_nn_for_icp(*args, max_tiles=128, query_mask=live)(p)
+    assert (i_m[~live] == -1).all() and torch.isinf(s_m[~live]).all()
+    assert torch.equal(s_m[live], s_all[live]) and torch.equal(i_m[live], i_all[live])
+
+
 @pytest.mark.parametrize("dims,what", [((2048, 2048, 512), "2\\*\\*31"), ((1024, 1024, 512), "1 GiB")])
 def test_check_lattice_dims_raises(dims, what):
     with pytest.raises(ValueError, match=what):
