@@ -11,13 +11,15 @@ Phases (any failure exits non-zero before the result line):
 1. Card and build: the card's name and power limit from nvidia-smi, then
    all three kernels (nn_argmin, nn_matmul, nn_gather) built from csrc/
    with nvcc, one process per source, started together (time and ptxas
-   report for each).
+   report for each: registers, shared memory, spills).
 2. Each kernel against its plain PyTorch version on the card: 20,000 x
    20,000 (bench.py's surface; for nn_gather the aux rows are the
    target's estimated normals), sizes that are no multiple of any block,
    1 x 5, dead queries/refs, duplicated refs (with different aux rows,
-   inside one 512-ref tie window and across two) and lattice midpoints
-   (exact ties).  Indices must be identical and squared distances bit for
+   inside one 512-ref tie window and across two), lattice midpoints
+   (exact ties) and refs duplicated on both sides of every boundary
+   between the stretches that nn_argmin and nn_matmul split the refs
+   into.  Indices must be identical and squared distances bit for
    bit equal (kernel and plain version round the same f32 operations in
    the same order, unfused); gathered rows must be identical for single
    winners and within 8 ulp of the largest value for tie averages (the
@@ -26,7 +28,10 @@ Phases (any failure exits non-zero before the result line):
    nn_gather tie case against the averages worked out by hand.  Kernel
    and plain times at 20k x 20k (CUDA events, alternating turns), beside
    the least time the card could take (the larger of FP32 issue slots
-   over 132 SMs x 128 lanes x the SM clock, and bytes over 3.35 TB/s).
+   over 132 SMs x 128 lanes x the SM clock, and bytes over 3.35 TB/s);
+   nn_argmin's kernel time, bound and number of ref stretches also at the
+   main path's other shapes, 20,000 x 65,536 (a tracker sweep against the
+   map) and 200,000 x 200,000 (nn_1nn's brute engine).
 3. The registration path: a chain of 4 synthetic 20,000-point scans
    (bench.py's surface and step sizes) written as PCD files and registered
    with ``mapping_private_tpu_torch.apps.icp_register.main([... "--device",
@@ -61,9 +66,10 @@ Phases (any failure exits non-zero before the result line):
    track), warm.
 
 ``python3 chip_smoke.py --profile`` builds the kernels and then, instead
-of phases 2-6, profiles with torch.profiler one warm tracker step of
-phase 6 and phase 5's tiled ICP call (device time by kernel, launches,
-the device's idle share); it prints no result line.
+of phases 2-6, profiles with torch.profiler one warm pair of phase 3
+(normals + 20 ICP sweeps), one warm tracker step of phase 6 and phase 5's
+tiled ICP call (device time by kernel, launches, the device's idle
+share); it prints no result line.
 
 Every launch count is set to 0 just before a path is driven and read just
 after.  Prints, before the last line, one JSON line {"kernels": [...]}
@@ -137,9 +143,11 @@ def lowest_index_oracle(q: np.ndarray, r: np.ndarray):
     return idx, sq
 
 
-def nn_cases(pad: float, full: bool):
+def nn_cases(pad: float, full: bool, boundaries):
     """(name, queries, refs, check against the numpy oracle too, has exact
-    ties).  ``full`` adds the two large cases of the nn_argmin check."""
+    ties).  ``full`` adds the two large cases of the nn_argmin check.
+    ``boundaries(nq, nr)`` gives the first ref of every stretch but the
+    first that nn_argmin and nn_matmul split nr refs into for nq queries."""
     rng = np.random.default_rng(123)
     uni = lambda n: rng.uniform(-2, 2, (n, 3)).astype(np.float32)  # noqa: E731
     dead_q, dead_r = surface(N_POINTS, 21), surface(N_POINTS, 22)
@@ -152,6 +160,12 @@ def nn_cases(pad: float, full: bool):
     lat_r = g[rng.permutation(len(g))].astype(np.float32)
     cells = g[(g < 39).all(1)][rng.permutation(39**3)[:1000]].astype(np.float32)
     lat_q = np.concatenate([cells + [0.5, 0.5, 0.5], cells + [0.5, 0.0, 0.5], cells + [0.0, 0.5, 0.0]])
+    # 20 refs before each stretch boundary repeated right after it, queries on
+    # them: the copy in the earlier stretch has the lower index and must win
+    split_q, split_r = uni(3000), uni(N_POINTS)
+    for k, b in enumerate(boundaries(len(split_q), len(split_r))):
+        split_r[b : b + 20] = split_r[b - 20 : b]
+        split_q[20 * k : 20 * k + 20] = split_r[b - 20 : b]
     cases = [("main_path_20000x20000", surface(N_POINTS, 1), surface(N_POINTS, 0), False, False)]
     if full:
         cases.append(("100000x100000", surface(100_000, 2), surface(100_000, 3), False, False))
@@ -163,6 +177,7 @@ def nn_cases(pad: float, full: bool):
         ("dead_queries_and_refs_20000x20000", dead_q, dead_r, False, False),
         ("duplicated_refs_2500x15000", dup_q, dup_r, True, True),
         ("lattice_midpoints_3000x64000", lat_q.astype(np.float32), lat_r, True, True),
+        ("ties_across_stretch_boundaries_3000x20000", split_q, split_r, True, True),
     ]
     return cases
 
@@ -290,13 +305,24 @@ def profile_call(torch, name: str, fn, smi: str):
 
 
 def profile_paths(torch, dev, smi: str):
-    """--profile: where the time goes in a tracker step of phase 6 (scan 4
-    against the map of scans 0-3) and in phase 5's tiled ICP call."""
+    """--profile: where the time goes in a pair of phase 3 (scan 1 onto scan
+    0), in a tracker step of phase 6 (scan 4 against the map of scans 0-3)
+    and in phase 5's tiled ICP call."""
     from mapping_private_tpu_torch.core.cloud import PointCloud
     from mapping_private_tpu_torch.core.se3 import se3_exp
     from mapping_private_tpu_torch.ops.normals import estimate_normals
-    from mapping_private_tpu_torch.registration.icp import icp_point_to_plane_tiled
+    from mapping_private_tpu_torch.registration.icp import icp_point_to_plane, icp_point_to_plane_tiled
     from mapping_private_tpu_torch.registration.scan_to_map import ScanToMapTracker, TrackerConfig
+
+    scans, _ = make_chain(se3_exp, torch)
+    tgt_c, src_c = (PointCloud.from_numpy(a, device=dev) for a in scans[:2])
+
+    def pair():
+        tgt_n = estimate_normals(tgt_c, k=12)
+        icp_point_to_plane(src_c.padded_xyz(), src_c.mask, tgt_n.padded_xyz(), tgt_n.mask,
+                           tgt_n.channel("normal"), iters=ICP_ITERS)
+
+    profile_call(torch, f"pair: normals k=12 + icp_point_to_plane ({ICP_ITERS} sweeps), {N_POINTS}-point scans", pair, smi)
 
     clouds = [PointCloud.from_numpy(map_scan(k, se3_exp, torch)[1], device=dev) for k in range(5)]
     tracker = ScanToMapTracker(TrackerConfig(icp_iters=MAP_ICP_ITERS), device=dev)
@@ -350,7 +376,7 @@ def main(argv=None) -> int:
     from mapping_private_tpu_torch.core.cloud import PAD_COORD, PointCloud
     from mapping_private_tpu_torch.core.se3 import se3_exp
     from mapping_private_tpu_torch.io.pcd import load_pcd, save_pcd
-    from mapping_private_tpu_torch.ops import nn_argmin, nn_gather, nn_matmul
+    from mapping_private_tpu_torch.ops import nn_argmin, nn_gather, nn_matmul, nn_search
     from mapping_private_tpu_torch.ops.nn_dispatch import nn_1nn
     from mapping_private_tpu_torch.ops.normals import estimate_normals
     from mapping_private_tpu_torch.registration.icp import (
@@ -360,6 +386,13 @@ def main(argv=None) -> int:
     dev = torch.device("cuda")
     to_dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
     wrappers = {"nn_argmin": nn_argmin, "nn_matmul": nn_matmul, "nn_gather": nn_gather}
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def boundaries(nq, nr):
+        splits = nn_search.split_count(nq, nr, sms)
+        step = nn_search.stretch_len(nr, splits)
+        return [k * step for k in range(1, nn_search.stretch_count(nr, splits))]
 
     def reset_counts():
         for w in wrappers.values():
@@ -384,7 +417,11 @@ def main(argv=None) -> int:
     # -- phase 2: kernels vs plain on the card -------------------------------
     results = {}  # kernel name -> dict(max_abs_err, ms, plain_ms, bound_ms, bound_by)
     max_abs_err = 0.0
-    for name, q_np, r_np, with_oracle, _ in nn_cases(PAD_COORD, full=True):
+    n_split = len(boundaries(3000, N_POINTS)) + 1
+    print(f"the tie case's 20,000 refs are split into {n_split} stretches for its 3,000 queries ({sms} SMs)")
+    if n_split < 2:
+        fail("the stretch-boundary case has no boundary")
+    for name, q_np, r_np, with_oracle, _ in nn_cases(PAD_COORD, True, boundaries):
         q = to_dev(q_np)
         prep = nn_argmin.prepare_nn_ref_argmin(to_dev(r_np))
         idx_k, sq_k = nn_argmin.nn_argmin_prepared(q, prep)
@@ -407,7 +444,7 @@ def main(argv=None) -> int:
             fail(msg)
     results["nn_argmin"] = {"max_abs_err": max_abs_err}
 
-    small_cases = nn_cases(PAD_COORD, full=False)
+    small_cases = nn_cases(PAD_COORD, False, boundaries)
     max_abs_err = 0.0
     for name, q_np, r_np, _, _ in small_cases:
         q, r = to_dev(q_np), to_dev(r_np)
@@ -490,10 +527,30 @@ def main(argv=None) -> int:
         ms, p_ms, kern, plain = time_turns(torch, kernel_fn, plain_fn)
         b_ms, b_by = bound_ms(name, N_POINTS, N_POINTS, bytes_moved, sm_clock_hz)
         results[name].update(ms=ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)
-        print(f"{name} 20000x20000: kernel {ms:.4f} ms (turns {[round(x, 4) for x in kern]}), "
+        stretches = "" if name.startswith("nn_gather") else (
+            f"{len(boundaries(N_POINTS, N_POINTS)) + 1} ref stretches, ")
+        print(f"{name} 20000x20000: {stretches}kernel {ms:.4f} ms (turns {[round(x, 4) for x in kern]}), "
               f"plain {p_ms:.4f} ms (turns {[round(x, 4) for x in plain]}), bound {b_ms:.4f} ms by {b_by} "
               f"({b_ms / ms:.3f} of the kernel's time; bytes alone {1e3 * bytes_moved / HBM_BYTES_PER_S:.5f} ms) "
               f"[{smi}]", flush=True)
+
+    # nn_argmin at the main path's other shapes, kernel only (the plain
+    # version is no yardstick, and too slow there): a tracker sweep against a
+    # full-capacity map, a quarter of it dead rows, and nn_1nn's brute engine
+    map_np = surface(65_536, 7)
+    map_np[49_152:] = PAD_COORD
+    big_tgt_np, big_src_np, big_nrm_np = big_pair()
+    results["nn_argmin"]["shapes"] = {}
+    for label, q_np, r_np, reps in (("20000x65536", src_np, map_np, 50), (f"{N_BIG}x{N_BIG}", big_src_np, big_tgt_np, 5)):
+        qs, preps = to_dev(q_np), nn_argmin.prepare_nn_ref_argmin(to_dev(r_np))
+        turns = [event_ms(torch, lambda: nn_argmin.nn_argmin_prepared(qs, preps), reps) for _ in range(3)]
+        ms = statistics.median(turns)
+        b_ms, b_by = bound_ms("nn_argmin", len(q_np), len(r_np), 4 * (3 * len(q_np) + 3 * len(r_np) + 2 * len(q_np)),
+                              sm_clock_hz)
+        n_str = len(boundaries(len(q_np), len(r_np))) + 1
+        results["nn_argmin"]["shapes"][label] = dict(ms=ms, bound_ms=b_ms, bound_by=b_by, stretches=n_str)
+        print(f"nn_argmin {label}: {n_str} ref stretches, kernel {ms:.4f} ms (turns {[round(x, 4) for x in turns]}), "
+              f"bound {b_ms:.4f} ms by {b_by} ({b_ms / ms:.3f} of the kernel's time) [{smi}]", flush=True)
 
     launches = {name: {} for name in results}  # kernel -> {path: count}
 
@@ -601,7 +658,6 @@ def main(argv=None) -> int:
             fail(f"{name}: its entry point did not launch the kernel")
 
     # -- phase 5: the front door and tiled ICP at 200k ----------------------------
-    big_tgt_np, big_src_np, big_nrm_np = big_pair()
     big_tgt, big_src, big_nrm = to_dev(big_tgt_np), to_dev(big_src_np), to_dev(big_nrm_np)
     ones = torch.ones(N_BIG, dtype=torch.bool, device=dev)
     reset_counts()
@@ -705,7 +761,8 @@ def main(argv=None) -> int:
             name=name, route="cuda", source=source, replaces=replaces,
             launches=sum(launches[name].values()), launches_by_path=launches[name],
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
-            bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None))
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None,
+            **({"shapes": r["shapes"]} if "shapes" in r else {})))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,9 +3,10 @@
 Each kernel source ``csrc/<name>.cu`` is compiled by nvcc for Hopper
 (``sm_90a``) into a shared library of its own with a plain C interface
 and loaded with ctypes: no PyTorch headers, so a build takes seconds.
-The libraries land in ``build/torch_kernels/`` at the repository root,
-keyed by a hash of the source and the flags, at first use.  A failed
-build raises; nothing falls back.
+Headers shared between sources are ``csrc/*.cuh``.  The libraries land in
+``build/torch_kernels/`` at the repository root, keyed by a hash of the
+source, every header and the flags, at first use.  A failed build raises;
+nothing falls back.
 """
 from __future__ import annotations
 
@@ -19,6 +20,7 @@ import subprocess
 import time
 
 _PKG = pathlib.Path(__file__).resolve().parent
+CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -30,19 +32,19 @@ _VP, _CI = ctypes.c_void_p, ctypes.c_int
 # return cudaGetLastError() as an int).  Each library also exports
 # ``<name>_error_string(int) -> const char*``.
 KERNELS = {
-    # q, nq, rt, nr, idx, sq, stream
-    "nn_argmin": [_VP, _CI, _VP, _CI, _VP, _VP, _VP],
-    # q, nq, r, nr, idx, sq, stream
-    "nn_matmul": [_VP, _CI, _VP, _CI, _VP, _VP, _VP],
+    # q, nq, rt, nr, splits, part_d, part_i, counters, idx, sq, stream
+    "nn_argmin": [_VP, _CI, _VP, _CI, _CI, _VP, _VP, _VP, _VP, _VP, _VP],
+    # q, nq, r, nr, splits, part_d, part_i, counters, idx, sq, stream
+    "nn_matmul": [_VP, _CI, _VP, _CI, _CI, _VP, _VP, _VP, _VP, _VP, _VP],
     # mode, q, nq, rt, nt, nr, sq, q_sel, n_sel, stream
     "nn_gather": [_CI, _VP, _CI, _VP, _VP, _CI, _VP, _VP, _VP, _VP],
 }
 
 
-def source_path(name: str) -> pathlib.Path:
+def source_path(name: str, csrc_dir: pathlib.Path = CSRC_DIR) -> pathlib.Path:
     if name not in KERNELS:
         raise KeyError(f"unknown kernel {name!r}; have {sorted(KERNELS)}")
-    return _PKG / "csrc" / f"{name}.cu"
+    return csrc_dir / f"{name}.cu"
 
 
 def _nvcc() -> str:
@@ -56,10 +58,15 @@ def _nvcc() -> str:
     return found
 
 
-def _library_path(name: str) -> pathlib.Path:
-    src = source_path(name)
-    key = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{name}-{key[:16]}.so"
+def _library_path(name: str, csrc_dir: pathlib.Path = CSRC_DIR) -> pathlib.Path:
+    """Where the library of ``csrc_dir/<name>.cu`` goes: its name carries a
+    hash of the source, of every header beside it (any source may include
+    any of them) and of the flags, so an edit of either builds anew."""
+    key = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [source_path(name, csrc_dir), *sorted(csrc_dir.glob("*.cuh"))]:
+        data = path.read_bytes()
+        key.update(f"\0{path.name}\0{len(data)}\0".encode() + data)
+    return BUILD_DIR / f"{name}-{key.hexdigest()[:16]}.so"
 
 
 def compile_libraries(names=None) -> dict[str, tuple[pathlib.Path, str, float]]:
@@ -78,7 +85,7 @@ def compile_libraries(names=None) -> dict[str, tuple[pathlib.Path, str, float]]:
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(source_path(name))]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", str(tmp), str(source_path(name))]
         proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         running.append((name, lib, tmp, cmd, proc, time.perf_counter()))
     failures = []

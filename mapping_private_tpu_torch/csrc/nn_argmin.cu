@@ -11,111 +11,71 @@
 //   nearest ref, d2 = (dx*dx + dy*dy) + dz*dz from direct differences;
 //   exact ties go to the lowest ref index.
 //
-// What bounds it: FP32 ALU issue.  Each query-ref pair costs 3 subtracts,
-// 3 multiplies, 2 adds and a compare-select (~8 flops) and no device-memory
-// bytes to speak of: a ref is read once per block from device memory and
-// then from shared memory by every thread of the block.
+// What bounds it: FP32 issue slots.  Each query-ref pair costs 3 subtracts,
+// 3 multiplies and 2 adds that must stay unfused, plus finding the minimum,
+// and no device-memory bytes to speak of: a ref is read once per block from
+// device memory (from L2 by all blocks but the first) and then from shared
+// memory by every thread of the block.
 //
-// What the design does about that: one thread owns one query and keeps its
-// running (best_d, best_i) in registers, so there is no cross-thread
-// reduction and no atomics.  The block streams the refs through shared
-// memory in TILE-wide x/y/z rows, walked in ascending index with a strict
-// '<', which yields the lowest index on exact ties.  All threads of a warp
-// read the same shared-memory word (a broadcast, no bank conflicts), four
-// refs per 16-byte load.  The sum is written with __fmul_rn/__fadd_rn so
-// nvcc cannot contract it into FMAs: the last bit of d2 then matches the
-// plain version and near-tie indices do not flip.  The ragged ends are
-// masked here: queries past nq do no stores, and the tail of the last tile
-// is filled with +inf refs, which never win.  Splitting the refs across
-// blocks to fill all SMs at small nq is left to later tuning.
+// What the design does about that is in nn_search.cuh, the skeleton shared
+// with nn_matmul.cu: the refs are split across blocks so that 20,000
+// queries fill the card, a thread searches for two queries with each ref it
+// loads, the hot loop takes a tree minimum of 8 distances and carries only
+// (least d2, first group that reached it), and the index is found
+// afterwards in that one group.  This file adds the pair: x/y/z
+// rows staged as they lie in device memory, the tail of a tile filled with
+// +inf refs (d2 = +inf, never '<' anything), and d2 written with
+// __fsub_rn/__fmul_rn/__fadd_rn so nvcc cannot contract it into FMAs: the
+// last bit of d2 then matches the plain version and near-tie indices do not
+// flip.  All threads of a warp read the same shared-memory words (a
+// broadcast, no bank conflicts), four refs per 16-byte load.
 
-#include <cuda_runtime.h>
-#include <math_constants.h>
+#include "nn_search.cuh"
 
 namespace {
 
-constexpr int kBlock = 128;  // queries (threads) per block
-constexpr int kTile = 2048;  // refs per shared-memory tile (24 KB for x/y/z)
+struct DirectPair {
+  static constexpr int kRows = 3;
 
-__device__ __forceinline__ void consider(float qx, float qy, float qz, float rx,
-                                         float ry, float rz, int j, float& best_d,
-                                         int& best_i) {
-  const float dx = qx - rx;
-  const float dy = qy - ry;
-  const float dz = qz - rz;
-  const float d = __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)),
-                            __fmul_rn(dz, dz));
-  if (d < best_d) {
-    best_d = d;
-    best_i = j;
+  struct Query {
+    float x, y, z;
+  };
+
+  static __device__ __forceinline__ Query query(float qx, float qy, float qz) {
+    return {qx, qy, qz};
   }
-}
 
-__global__ void __launch_bounds__(kBlock)
-    nn_argmin_kernel(const float* __restrict__ q, int nq,
-                     const float* __restrict__ rt, int nr,
-                     int* __restrict__ idx_out, float* __restrict__ sq_out) {
-  __shared__ __align__(16) float sx[kTile];
-  __shared__ __align__(16) float sy[kTile];
-  __shared__ __align__(16) float sz[kTile];
-
-  const int i = blockIdx.x * kBlock + threadIdx.x;
-  const bool live = i < nq;
-  float qx = 0.f, qy = 0.f, qz = 0.f;
-  if (live) {
-    qx = q[3 * static_cast<size_t>(i)];
-    qy = q[3 * static_cast<size_t>(i) + 1];
-    qz = q[3 * static_cast<size_t>(i) + 2];
+  static __device__ __forceinline__ float dist(const Query& q, float rx, float ry,
+                                               float rz, float) {
+    const float dx = __fsub_rn(q.x, rx);
+    const float dy = __fsub_rn(q.y, ry);
+    const float dz = __fsub_rn(q.z, rz);
+    return __fadd_rn(__fadd_rn(__fmul_rn(dx, dx), __fmul_rn(dy, dy)), __fmul_rn(dz, dz));
   }
-  const float* rx = rt;
-  const float* ry = rt + static_cast<size_t>(nr);
-  const float* rz = rt + 2 * static_cast<size_t>(nr);
 
-  float best_d = CUDART_INF_F;
-  int best_i = 0;
-  for (int base = 0; base < nr; base += kTile) {
-    const int n = min(kTile, nr - base);
-    const int n4 = (n + 3) & ~3;  // walk whole float4s; tail padded below
-    __syncthreads();  // previous tile fully consumed
-    for (int j = threadIdx.x; j < n4; j += kBlock) {
+  static __device__ __forceinline__ void stage(const float* __restrict__ rt, int nr,
+                                               int base, int n, int n_pad,
+                                               float (*s)[nn_search::kTile]) {
+    const float* rx = rt + base;
+    const float* ry = rx + static_cast<size_t>(nr);
+    const float* rz = ry + static_cast<size_t>(nr);
+    for (int j = threadIdx.x; j < n_pad; j += nn_search::kBlock) {
       const bool in = j < n;
-      sx[j] = in ? rx[base + j] : CUDART_INF_F;
-      sy[j] = in ? ry[base + j] : CUDART_INF_F;
-      sz[j] = in ? rz[base + j] : CUDART_INF_F;
-    }
-    __syncthreads();
-    const float4* sx4 = reinterpret_cast<const float4*>(sx);
-    const float4* sy4 = reinterpret_cast<const float4*>(sy);
-    const float4* sz4 = reinterpret_cast<const float4*>(sz);
-#pragma unroll 2
-    for (int j4 = 0; j4 < n4 / 4; ++j4) {
-      const float4 x = sx4[j4], y = sy4[j4], z = sz4[j4];
-      const int j = base + 4 * j4;
-      consider(qx, qy, qz, x.x, y.x, z.x, j, best_d, best_i);
-      consider(qx, qy, qz, x.y, y.y, z.y, j + 1, best_d, best_i);
-      consider(qx, qy, qz, x.z, y.z, z.z, j + 2, best_d, best_i);
-      consider(qx, qy, qz, x.w, y.w, z.w, j + 3, best_d, best_i);
+      s[0][j] = in ? rx[j] : CUDART_INF_F;
+      s[1][j] = in ? ry[j] : CUDART_INF_F;
+      s[2][j] = in ? rz[j] : CUDART_INF_F;
     }
   }
-  if (live) {
-    idx_out[i] = best_i;
-    sq_out[i] = best_d;
-  }
-}
+};
 
 }  // namespace
 
-// Plain C entry point, loaded with ctypes.  Launches on `stream` and does
-// not synchronise; returns cudaGetLastError() (0 on success), so a refused
-// launch is reported by the caller.
+// Plain C entry point, loaded with ctypes; see nn_search::launch.
 extern "C" int nn_argmin_launch(const void* q, int nq, const void* rt, int nr,
+                                int splits, void* part_d, void* part_i, void* counters,
                                 void* idx, void* sq, void* stream) {
-  if (nq <= 0 || nr <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid((nq + kBlock - 1) / kBlock);
-  nn_argmin_kernel<<<grid, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(q), nq, static_cast<const float*>(rt), nr,
-      static_cast<int*>(idx), static_cast<float*>(sq));
-  return static_cast<int>(cudaGetLastError());
+  return nn_search::launch<DirectPair>(q, nq, rt, nr, splits, part_d, part_i, counters,
+                                       idx, sq, stream);
 }
 
 extern "C" const char* nn_argmin_error_string(int err) {

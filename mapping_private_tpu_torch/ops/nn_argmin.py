@@ -17,7 +17,7 @@ Contract, shared by both:
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -27,7 +27,6 @@ launches = 0
 
 # Elements of one (rows, N) block in the plain version: 32 Mi floats.
 _CHUNK_ELEMS = 1 << 25
-_INT_MAX = 2**31 - 1
 
 
 def prepare_nn_ref_argmin(ref_xyz: torch.Tensor) -> torch.Tensor:
@@ -83,19 +82,16 @@ def nn_argmin_prepared(
     return _launch(query_xyz.contiguous(), prepared.contiguous())
 
 
-def _launch(q: torch.Tensor, rt: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def _launch(q: torch.Tensor, rt: torch.Tensor,
+            splits: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the kernel; ``splits`` (how many blocks share the refs of one
+    query tile) is chosen from the sizes and the card unless given."""
     global launches
-    from mapping_private_tpu_torch._build import launch
+    from mapping_private_tpu_torch.ops.nn_search import search
 
-    nq, nr = q.shape[0], rt.shape[1]
-    if q.numel() > _INT_MAX or rt.numel() > _INT_MAX:
-        raise ValueError(f"{nq} queries x {nr} refs: sizes exceed int32 indexing")
-    idx = torch.empty((nq,), dtype=torch.int32, device=q.device)
-    sq = torch.empty((nq,), dtype=torch.float32, device=q.device)
-    if nq == 0:
-        return idx, sq
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        launch("nn_argmin", q.data_ptr(), nq, rt.data_ptr(), nr, idx.data_ptr(), sq.data_ptr(), stream)
+    if q.shape[0] == 0:
+        return (torch.empty((0,), dtype=torch.int32, device=q.device),
+                torch.empty((0,), dtype=torch.float32, device=q.device))
+    out = search("nn_argmin", q, rt, rt.shape[1], splits)
     launches += 1
-    return idx, sq
+    return out

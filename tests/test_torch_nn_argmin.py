@@ -5,15 +5,18 @@ interpret mode (``nn_argmin_prepared(..., interpret=True)``), as
 tests/test_pallas_kernels.py runs it.  Indices must be identical and
 squared distances within 1e-6: both sides sum the same direct
 differences in f32.  The CUDA kernel is held against the plain version
-on the card (marked ``cuda``; skipped without a GPU).  The JAX package is
-imported only by the parity tests, so ``-m cuda --noconftest`` runs the
-card tests on a machine without jax."""
+on the card (marked ``cuda``; skipped without a GPU), with the refs split
+into stretches so that ties, dead points and ragged sizes fall on and
+around a boundary between two blocks.  How many ways to split, and the
+workspace that follows, are pure functions tested here on the CPU.  The
+JAX package is imported only by the parity tests, so ``-m cuda
+--noconftest`` runs the card tests on a machine without jax."""
 import numpy as np
 import pytest
 import torch
 
 from mapping_private_tpu_torch.core.cloud import PAD_COORD
-from mapping_private_tpu_torch.ops import nn_argmin
+from mapping_private_tpu_torch.ops import nn_argmin, nn_search
 
 
 def _random(nq, nr, seed):
@@ -159,3 +162,146 @@ def test_kernel_matches_plain_on_card(case, cuda_device):
     np.testing.assert_array_equal(idx_k, idx_p)
     # no FMA contraction in the kernel: the same f32 ops, bit for bit
     np.testing.assert_array_equal(sq_k, sq_p)
+
+
+# -- the split of the refs across blocks (ops/nn_search.py) -----------------
+
+SIZES = [(1, 5), (1, 20_000), (1, 2_049), (300, 900), (20_000, 20_000), (20_000, 65_536),
+         (20_011, 19_997), (200_000, 200_000), (200_000, 100), (1_000_000, 1_000_000)]
+
+
+@pytest.mark.parametrize("sm_count", [1, 108, 132, 144])
+@pytest.mark.parametrize("nq,nr", SIZES)
+def test_split_count_bounds(nq, nr, sm_count):
+    s = nn_search.split_count(nq, nr, sm_count)
+    ref_tiles = -(-nr // nn_search.REF_TILE)
+    q_tiles = -(-nq // nn_search.QUERY_TILE)
+    assert 1 <= s <= ref_tiles
+    # all blocks resident at once, unless the query tiles alone are more
+    assert s == 1 or s * q_tiles <= nn_search.BLOCKS_PER_SM * sm_count
+    n = nn_search.stretch_count(nr, s)
+    length = nn_search.stretch_len(nr, s)
+    assert 1 <= n <= s
+    assert length % nn_search.STRETCH_ALIGN == 0
+    assert (n - 1) * length < nr <= n * length  # no stretch is empty, none is left out
+    # no allowed split fills the card's last round of blocks more than 1% better,
+    # and no smaller one fills it as well
+    allowed = [k for k in range(1, ref_tiles + 1) if k == 1 or k * q_tiles <= nn_search.BLOCKS_PER_SM * sm_count]
+    fills = {k: nn_search.fill(k * q_tiles, sm_count) for k in allowed}
+    assert fills[s] >= max(fills.values()) * (1 - nn_search.FILL_SLACK)
+    assert all(fills[k] < max(fills.values()) * (1 - nn_search.FILL_SLACK) for k in allowed if k < s)
+
+
+@pytest.mark.parametrize("blocks,sm_count,want", [(132, 132, 1.0), (133, 132, 133 / 264), (395, 132, 395 / 396),
+                                                  (1, 132, 1 / 132), (782, 132, 782 / 792)])
+def test_fill_of_the_last_round(blocks, sm_count, want):
+    assert nn_search.fill(blocks, sm_count) == pytest.approx(want)
+
+
+@pytest.mark.parametrize("nq,nr,want", [
+    (200_000, 200_000, 1),  # 782 query tiles: 5.92 a SM, the queries alone fill the card
+    (20_000, 20_000, 5),  # 79 query tiles x 5 = 395 blocks on 132 SMs: 2.99 a SM
+    (20_000, 65_536, 5),
+    (1, 20_000, 10),  # one query tile: as many stretches as ref tiles
+    (1, 5, 1),
+    (3_000, 65_536, 11),  # 12 query tiles x 11 = 132 blocks
+])
+def test_split_count_on_132_sms(nq, nr, want):
+    assert nn_search.split_count(nq, nr, 132) == want
+
+
+@pytest.mark.parametrize("nq,nr,splits,want", [
+    (20_000, 20_000, 1, (0, 0)),  # one stretch: the block writes the outputs itself
+    (20_000, 20_000, 5, (5, 79)),
+    (20_011, 19_997, 7, (7, 79)),
+    (1, 5, 1000, (0, 0)),  # fewer refs than stretches asked for: one stretch of 32
+    (1, 100, 3, (2, 1)),  # a third of 100 rounds up to 64: stretches of 64 and 36
+    (1, 100, 4, (4, 1)),  # 32, 32, 32, 4
+    (257, 4_096, 128, (128, 2)),
+])
+def test_workspace_sizes(nq, nr, splits, want):
+    assert nn_search.workspace_sizes(nq, nr, splits) == want
+
+
+@pytest.mark.parametrize("bad", [(0, 5, 132), (5, 0, 132), (5, 5, 0)])
+def test_split_count_rejects_empty(bad):
+    with pytest.raises(ValueError):
+        nn_search.split_count(*bad)
+
+
+# -- cases where a boundary between two stretches matters (card) -------------
+
+def _ties_across_boundary(splits, nr=5000, nq=400, seed=8):
+    """Every query's nearest ref appears twice: on the last refs of one
+    stretch and on the first refs of the next, or both copies inside one
+    stretch, or copies in the first and the last stretch.  The copy with
+    the lower index must win each time."""
+    rng = np.random.default_rng(seed)
+    r = rng.uniform(-1, 1, (nr, 3)).astype(np.float32)
+    length = nn_search.stretch_len(nr, splits)
+    n = nn_search.stretch_count(nr, splits)
+    assert n >= 3
+    b = length  # first ref of stretch 1
+    r[b : b + 50] = r[b - 50 : b]  # copies on both sides of the boundary
+    r[b + 60 : b + 110] = r[b + 120 : b + 170]  # both copies inside stretch 1
+    last = (n - 1) * length
+    r[last : last + 50] = r[10:60]  # copies in the first and the last stretch
+    q = rng.uniform(-1, 1, (nq, 3)).astype(np.float32)
+    q[:50], q[50:100], q[100:150] = r[b - 50 : b], r[b + 60 : b + 110], r[10:60]
+    want = np.concatenate([np.arange(b - 50, b), np.arange(b + 60, b + 110), np.arange(10, 60)])
+    return q, r, want
+
+
+def _boundary_cases():
+    """name -> (queries, refs, splits, indices known for the first queries)."""
+    none = np.empty(0, np.int64)
+    cases = {}
+    for splits in (3, 7):
+        q, r, want = _ties_across_boundary(splits)
+        cases[f"ties_across_boundary_{splits}_stretches"] = (q, r, splits, want)
+    q, r = _random(70, 5, 20)
+    cases["fewer_refs_than_stretches"] = (q, r, 16, none)
+    q, r = _random(513, 4099, 21)  # no multiple of 4, 8, 32 or the tile; 3 query tiles
+    cases["ragged_refs_5_stretches"] = (q, r, 5, none)
+    q, r = _random(130, 2 * nn_search.REF_TILE + 3, 22)  # a second tile of 3 refs, then a stretch
+    cases["tile_tail_2_stretches"] = (q, r, 2, none)
+    q, r = _random(1, 9000, 23)
+    cases["one_query_4_stretches"] = (q, r, 4, none)
+    q, r = _dead(24)
+    q[:] = -PAD_COORD  # every ref ~1e8 away: d2 steps by ~2e9 there, ties everywhere
+    cases["all_queries_dead_3_stretches"] = (q, r, 3, none)
+    q, r = _lattice(25)
+    cases["lattice_midpoints_6_stretches"] = (q, r, 6, none)
+    return cases
+
+
+BOUNDARY_CASES = sorted(_boundary_cases())
+
+
+@pytest.mark.parametrize("case", BOUNDARY_CASES)
+def test_boundary_cases_on_cpu_oracle(case):
+    """The cases themselves: the plain version gives the lowest index (the
+    numpy oracle's) and the indices worked out by hand."""
+    q, r, _, want = _boundary_cases()[case]
+    idx_t, sq_t = _port(q, r)
+    idx_o, sq_o = _lowest_index_oracle(q, r)
+    np.testing.assert_array_equal(idx_t, idx_o)
+    np.testing.assert_array_equal(sq_t, sq_o)
+    np.testing.assert_array_equal(idx_t[: len(want)], want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", BOUNDARY_CASES)
+def test_kernel_split_boundaries_on_card(case, cuda_device):
+    q, r, splits, want = _boundary_cases()[case]
+    qd = torch.from_numpy(q).to(cuda_device)
+    prep = nn_argmin.prepare_nn_ref_argmin(torch.from_numpy(r).to(cuda_device))
+    idx_p, sq_p = (t.cpu().numpy() for t in nn_argmin.nn_argmin_plain(qd, prep))
+    for s in (splits, 1, None):  # as asked, one stretch, the wrapper's own choice
+        idx_k, sq_k = (t.cpu().numpy() for t in nn_argmin._launch(qd, prep, s))
+        np.testing.assert_array_equal(idx_k, idx_p)
+        np.testing.assert_array_equal(sq_k.view(np.int32), sq_p.view(np.int32))
+        np.testing.assert_array_equal(idx_k[: len(want)], want)
+    # the merging block leaves the ticket counters zeroed for the next launch
+    for counters in nn_search._counters.values():
+        assert int(counters.count_nonzero()) == 0

@@ -10,14 +10,17 @@ runner-up is farther than twice that (all other rows must still pick a
 ref whose true distance is within the bound of the best).  Against a
 numpy oracle in the port's own operation order the plain version is
 bit-exact.  The CUDA kernel is held against the plain version on the card
-(marked ``cuda``; skipped without a GPU); jax is imported inside the
-parity tests only, so ``-m cuda --noconftest`` needs no jax."""
+(marked ``cuda``; skipped without a GPU), also with the refs split into
+stretches so that ties, dead refs, the NaN-filled tile tail and slightly
+negative d² fall on and around a boundary between two blocks; jax is
+imported inside the parity tests only, so ``-m cuda --noconftest`` needs
+no jax."""
 import numpy as np
 import pytest
 import torch
 
 from mapping_private_tpu_torch.core.cloud import PAD_COORD
-from mapping_private_tpu_torch.ops import nn_matmul
+from mapping_private_tpu_torch.ops import nn_matmul, nn_search
 
 EPS = np.finfo(np.float32).eps
 
@@ -186,3 +189,76 @@ def test_kernel_matches_plain_on_card(case, cuda_device):
     # the same f32 operations in the same order, no FMA contraction
     np.testing.assert_array_equal(idx_k, idx_p)
     np.testing.assert_array_equal(sq_k, sq_p)
+
+
+# -- cases where a boundary between two stretches of refs matters -----------
+
+def _ties_across_boundary(splits, nr=5000, nq=400, seed=12):
+    """Each of the first 100 queries has its nearest ref twice: the last
+    refs of stretch 0 repeated on the first refs of stretch 1, and refs of
+    the first stretch repeated in the last.  The lower index must win."""
+    rng = np.random.default_rng(seed)
+    r = rng.uniform(-1, 1, (nr, 3)).astype(np.float32)
+    b = nn_search.stretch_len(nr, splits)
+    last = (nn_search.stretch_count(nr, splits) - 1) * b
+    assert last > b
+    r[b : b + 50] = r[b - 50 : b]
+    r[last : last + 50] = r[10:60]
+    q = rng.uniform(-1, 1, (nq, 3)).astype(np.float32)
+    q[:50], q[50:100] = r[b - 50 : b], r[10:60]
+    return q, r, np.concatenate([np.arange(b - 50, b), np.arange(10, 60)])
+
+
+def _boundary_cases():
+    """name -> (queries, refs, splits, indices known for the first queries)."""
+    none = np.empty(0, np.int64)
+    cases = {}
+    for splits in (3, 7):
+        q, r, want = _ties_across_boundary(splits)
+        cases[f"ties_across_boundary_{splits}_stretches"] = (q, r, splits, want)
+    cases["fewer_refs_than_stretches"] = (*_random(70, 5, 13), 16, none)
+    cases["ragged_refs_5_stretches"] = (*_random(513, 4099, 14), 5, none)
+    cases["tile_tail_2_stretches"] = (*_random(130, 2 * nn_search.REF_TILE + 3, 15), 2, none)
+    cases["one_query_4_stretches"] = (*_random(1, 9000, 16), 4, none)
+    q, r = _dead_refs(17)
+    q[::3] = -PAD_COORD  # dead queries: 1e16-sized terms, ties everywhere
+    cases["dead_queries_and_refs_3_stretches"] = (q, r, 3, none)
+    q, r = _random(300, 3000, 18)
+    q, r = q + np.float32(40.0), r + np.float32(40.0)
+    # a ref 1e-3 from each query: d2 cancels to about 0 in steps of ~1e-3
+    # (an ulp of q2 + r2 ~ 1e4), of either sign, with many exact ties
+    r[1400:1700] = q + np.random.default_rng(19).normal(0, 1e-3, q.shape).astype(np.float32)
+    cases["cancelling_d2_far_from_origin_4_stretches"] = (q, r, 4, none)
+    return cases
+
+
+BOUNDARY_CASES = sorted(_boundary_cases())
+
+
+@pytest.mark.parametrize("case", BOUNDARY_CASES)
+def test_boundary_cases_on_cpu_oracle(case):
+    """The cases themselves: the plain version equals the numpy oracle in
+    the port's operation order and the indices worked out by hand."""
+    q, r, _, want = _boundary_cases()[case]
+    idx_t, sq_t = _port(q, r)
+    idx_o, sq_o = _oracle(q, r)
+    np.testing.assert_array_equal(idx_t, idx_o)
+    np.testing.assert_array_equal(sq_t, sq_o)
+    np.testing.assert_array_equal(idx_t[: len(want)], want)
+    if case.startswith("cancelling"):
+        assert (sq_t < 0).any()  # the case does reach below zero
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", BOUNDARY_CASES)
+def test_kernel_split_boundaries_on_card(case, cuda_device):
+    q, r, splits, want = _boundary_cases()[case]
+    qd, rd = torch.from_numpy(q).to(cuda_device), torch.from_numpy(r).to(cuda_device)
+    idx_p, sq_p = (t.cpu().numpy() for t in nn_matmul.nn_matmul_plain(qd, rd))
+    for s in (splits, 1, None):  # as asked, one stretch, the wrapper's own choice
+        idx_k, sq_k = (t.cpu().numpy() for t in nn_matmul._launch(qd, rd, s))
+        np.testing.assert_array_equal(idx_k, idx_p)
+        np.testing.assert_array_equal(sq_k.view(np.int32), sq_p.view(np.int32))
+        np.testing.assert_array_equal(idx_k[: len(want)], want)
+    for counters in nn_search._counters.values():
+        assert int(counters.count_nonzero()) == 0
