@@ -28,10 +28,12 @@ Phases (any failure exits non-zero before the result line):
    nn_gather tie case against the averages worked out by hand.  Kernel
    and plain times at 20k x 20k (CUDA events, alternating turns), beside
    the least time the card could take (the larger of FP32 issue slots
-   over 132 SMs x 128 lanes x the SM clock, and bytes over 3.35 TB/s);
-   nn_argmin's kernel time, bound and number of ref stretches also at the
-   main path's other shapes, 20,000 x 65,536 (a tracker sweep against the
-   map) and 200,000 x 200,000 (nn_1nn's brute engine).
+   over 132 SMs x 128 lanes x the SM clock, and bytes over 3.35 TB/s).
+   nn_argmin also at the main path's other shapes, 20,000 x 65,536 (a
+   tracker sweep against the map, a quarter of it dead rows) and 200,000 x
+   200,000 (nn_1nn's brute engine): first held against the plain version
+   there (indices equal, d2 bit for bit), then its kernel time, bound and
+   the number of ref stretches that the launch made.
 3. The registration path: a chain of 4 synthetic 20,000-point scans
    (bench.py's surface and step sizes) written as PCD files and registered
    with ``mapping_private_tpu_torch.apps.icp_register.main([... "--device",
@@ -106,12 +108,17 @@ EPS = float(np.finfo(np.float32).eps)
 # H100 SXM: SMs x FP32 lanes; bytes/s of HBM3 (NVIDIA's data sheet)
 SM_LANES = 132 * 128
 HBM_BYTES_PER_S = 3.35e12
-# FP32 issue slots per query-ref pair, from each kernel's inner loop:
-# nn_argmin 3 sub + 3 mul + 2 add + compare + select; nn_matmul 3 mul +
-# 3 add + 1 fma + compare + select; nn_gather needs no more per pair in
-# either form (its ties are found in one window, after the minimum).
-SLOTS_PER_PAIR = {"nn_argmin": 10, "nn_matmul": 9, "nn_gather:vpu": 10,
-                  "nn_gather:mxu": 9, "nn_gather:mxu_fast": 9}
+# FP32 issue slots per query-ref pair that the function itself needs: the
+# distance (direct differences: 3 sub + 3 mul + 2 add; expansion form: 3 mul
+# + 3 add + 1 fma) and one min, since the least of N numbers takes N - 1 of
+# them.  The index, the ties and the gather are per query, not per pair.
+SLOTS_PER_PAIR = {"nn_argmin": 9, "nn_matmul": 8, "nn_gather:vpu": 9,
+                  "nn_gather:mxu": 8, "nn_gather:mxu_fast": 8}
+# Until the kernels' redesign the bound counted a compare and a select per
+# pair in place of the min (what the first loops issued); shares by that
+# count are printed in brackets beside the new ones, to compare with
+# earlier records.
+SLOTS_PER_PAIR_BEFORE = {name: n + 1 for name, n in SLOTS_PER_PAIR.items()}
 KERNEL_FILES = {
     "nn_argmin": ("mapping_private_tpu_torch/csrc/nn_argmin.cu", "mapping_private_tpu/ops/pallas_nn.py:245"),
     "nn_matmul": ("mapping_private_tpu_torch/csrc/nn_matmul.cu", "mapping_private_tpu/ops/pallas_nn.py:38"),
@@ -223,10 +230,12 @@ def time_turns(torch, kernel_fn, plain_fn):
 
 
 def bound_ms(name: str, nq: int, nr: int, bytes_moved: int, sm_clock_hz: float):
-    """The least time the card could take: (ms, 'operations' or 'bytes')."""
+    """The least time the card could take: (ms, 'operations' or 'bytes',
+    ms by the earlier count of slots per pair)."""
     ops_ms = 1e3 * SLOTS_PER_PAIR[name] * nq * nr / (SM_LANES * sm_clock_hz)
     bytes_ms = 1e3 * bytes_moved / HBM_BYTES_PER_S
-    return (ops_ms, "operations") if ops_ms >= bytes_ms else (bytes_ms, "bytes")
+    before_ms = max(ops_ms * SLOTS_PER_PAIR_BEFORE[name] / SLOTS_PER_PAIR[name], bytes_ms)
+    return (ops_ms, "operations", before_ms) if ops_ms >= bytes_ms else (bytes_ms, "bytes", before_ms)
 
 
 def make_chain(se3_exp, torch):
@@ -426,6 +435,8 @@ def main(argv=None) -> int:
         prep = nn_argmin.prepare_nn_ref_argmin(to_dev(r_np))
         idx_k, sq_k = nn_argmin.nn_argmin_prepared(q, prep)
         torch.cuda.synchronize()
+        if name.startswith("ties_across") and nn_search.last_stretches != n_split:
+            fail(f"{name}: built for {n_split} stretches, the launch made {nn_search.last_stretches}")
         idx_p, sq_p = nn_argmin.nn_argmin_plain(q, prep)
         idx_k, sq_k, idx_p, sq_p = (t.cpu().numpy() for t in (idx_k, sq_k, idx_p, sq_p))
         n_idx = int((idx_k != idx_p).sum())
@@ -524,33 +535,51 @@ def main(argv=None) -> int:
             lambda d=dist: nn_gather.nn_gather_prepared(q, rt, nt, dist=d),
             lambda d=dist: nn_gather.nn_gather_plain(q, rt, nt, d), 4 * (3 + 6 + 7) * N_POINTS)
     for name, (kernel_fn, plain_fn, bytes_moved) in timed.items():
-        ms, p_ms, kern, plain = time_turns(torch, kernel_fn, plain_fn)
-        b_ms, b_by = bound_ms(name, N_POINTS, N_POINTS, bytes_moved, sm_clock_hz)
+        ms, p_ms, kern, plain = time_turns(torch, kernel_fn, plain_fn)  # the last turn is the kernel's
+        b_ms, b_by, before_ms = bound_ms(name, N_POINTS, N_POINTS, bytes_moved, sm_clock_hz)
         results[name].update(ms=ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)
-        stretches = "" if name.startswith("nn_gather") else (
-            f"{len(boundaries(N_POINTS, N_POINTS)) + 1} ref stretches, ")
+        stretches = "" if name.startswith("nn_gather") else f"{nn_search.last_stretches} ref stretches, "
         print(f"{name} 20000x20000: {stretches}kernel {ms:.4f} ms (turns {[round(x, 4) for x in kern]}), "
               f"plain {p_ms:.4f} ms (turns {[round(x, 4) for x in plain]}), bound {b_ms:.4f} ms by {b_by} "
-              f"({b_ms / ms:.3f} of the kernel's time; bytes alone {1e3 * bytes_moved / HBM_BYTES_PER_S:.5f} ms) "
-              f"[{smi}]", flush=True)
+              f"({b_ms / ms:.3f} of the kernel's time [{before_ms / ms:.3f} by the earlier count of "
+              f"{SLOTS_PER_PAIR_BEFORE[name]} slots a pair]; bytes alone "
+              f"{1e3 * bytes_moved / HBM_BYTES_PER_S:.5f} ms) [{smi}]", flush=True)
 
-    # nn_argmin at the main path's other shapes, kernel only (the plain
-    # version is no yardstick, and too slow there): a tracker sweep against a
-    # full-capacity map, a quarter of it dead rows, and nn_1nn's brute engine
+    # nn_argmin at the main path's other shapes, where the launch geometry
+    # differs: a tracker sweep against a full-capacity map, a quarter of it
+    # dead rows (stretches that are no multiple of the ref tile), and nn_1nn's
+    # brute engine.  Held against the plain version first, then timed alone.
     map_np = surface(65_536, 7)
     map_np[49_152:] = PAD_COORD
     big_tgt_np, big_src_np, big_nrm_np = big_pair()
     results["nn_argmin"]["shapes"] = {}
     for label, q_np, r_np, reps in (("20000x65536", src_np, map_np, 50), (f"{N_BIG}x{N_BIG}", big_src_np, big_tgt_np, 5)):
         qs, preps = to_dev(q_np), nn_argmin.prepare_nn_ref_argmin(to_dev(r_np))
+        idx_k, sq_k = nn_argmin.nn_argmin_prepared(qs, preps)
+        n_str = nn_search.last_stretches
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        idx_p, sq_p = nn_argmin.nn_argmin_plain(qs, preps)
+        n_idx, n_bits = int((idx_k != idx_p).sum()), int((sq_k.view(torch.int32) != sq_p.view(torch.int32)).sum())
+        err = float((sq_k.double() - sq_p.double()).abs().max())
+        plain_s = time.perf_counter() - t0
+        results["nn_argmin"]["max_abs_err"] = max(results["nn_argmin"]["max_abs_err"], err)
+        msg = (f"nn_argmin {label}: idx mismatches {n_idx}, sq bit mismatches {n_bits}, max|dsq| {err:.3g} "
+               f"(plain version once: {plain_s:.2f} s wall)")
+        print(msg, flush=True)
+        if n_idx or n_bits or not bool(torch.isfinite(sq_k).all()):
+            fail(msg)
+        del idx_p, sq_p
         turns = [event_ms(torch, lambda: nn_argmin.nn_argmin_prepared(qs, preps), reps) for _ in range(3)]
         ms = statistics.median(turns)
-        b_ms, b_by = bound_ms("nn_argmin", len(q_np), len(r_np), 4 * (3 * len(q_np) + 3 * len(r_np) + 2 * len(q_np)),
-                              sm_clock_hz)
-        n_str = len(boundaries(len(q_np), len(r_np))) + 1
+        b_ms, b_by, before_ms = bound_ms("nn_argmin", len(q_np), len(r_np),
+                                         4 * (3 * len(q_np) + 3 * len(r_np) + 2 * len(q_np)), sm_clock_hz)
+        if nn_search.last_stretches != n_str:
+            fail(f"nn_argmin {label}: {n_str} stretches when checked, {nn_search.last_stretches} when timed")
         results["nn_argmin"]["shapes"][label] = dict(ms=ms, bound_ms=b_ms, bound_by=b_by, stretches=n_str)
         print(f"nn_argmin {label}: {n_str} ref stretches, kernel {ms:.4f} ms (turns {[round(x, 4) for x in turns]}), "
-              f"bound {b_ms:.4f} ms by {b_by} ({b_ms / ms:.3f} of the kernel's time) [{smi}]", flush=True)
+              f"bound {b_ms:.4f} ms by {b_by} ({b_ms / ms:.3f} of the kernel's time [{before_ms / ms:.3f} by the "
+              f"earlier count of {SLOTS_PER_PAIR_BEFORE['nn_argmin']} slots a pair]) [{smi}]", flush=True)
 
     launches = {name: {} for name in results}  # kernel -> {path: count}
 

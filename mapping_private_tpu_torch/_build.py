@@ -32,10 +32,10 @@ _VP, _CI = ctypes.c_void_p, ctypes.c_int
 # return cudaGetLastError() as an int).  Each library also exports
 # ``<name>_error_string(int) -> const char*``.
 KERNELS = {
-    # q, nq, rt, nr, splits, part_d, part_i, counters, idx, sq, stream
-    "nn_argmin": [_VP, _CI, _VP, _CI, _CI, _VP, _VP, _VP, _VP, _VP, _VP],
-    # q, nq, r, nr, splits, part_d, part_i, counters, idx, sq, stream
-    "nn_matmul": [_VP, _CI, _VP, _CI, _CI, _VP, _VP, _VP, _VP, _VP, _VP],
+    # q, nq, rt, nr, stretch, rows, part_d, part_i, n_counters, counters, idx, sq, stream
+    "nn_argmin": [_VP, _CI, _VP, _CI, _CI, _CI, _VP, _VP, _CI, _VP, _VP, _VP, _VP],
+    # q, nq, r, nr, stretch, rows, part_d, part_i, n_counters, counters, idx, sq, stream
+    "nn_matmul": [_VP, _CI, _VP, _CI, _CI, _CI, _VP, _VP, _CI, _VP, _VP, _VP, _VP],
     # mode, q, nq, rt, nt, nr, sq, q_sel, n_sel, stream
     "nn_gather": [_CI, _VP, _CI, _VP, _VP, _CI, _VP, _VP, _VP, _VP],
 }

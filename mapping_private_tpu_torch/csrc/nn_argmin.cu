@@ -72,10 +72,11 @@ struct DirectPair {
 
 // Plain C entry point, loaded with ctypes; see nn_search::launch.
 extern "C" int nn_argmin_launch(const void* q, int nq, const void* rt, int nr,
-                                int splits, void* part_d, void* part_i, void* counters,
-                                void* idx, void* sq, void* stream) {
-  return nn_search::launch<DirectPair>(q, nq, rt, nr, splits, part_d, part_i, counters,
-                                       idx, sq, stream);
+                                int stretch, int rows, void* part_d, void* part_i,
+                                int n_counters, void* counters, void* idx, void* sq,
+                                void* stream) {
+  return nn_search::launch<DirectPair>(q, nq, rt, nr, stretch, rows, part_d, part_i,
+                                  n_counters, counters, idx, sq, stream);
 }
 
 extern "C" const char* nn_argmin_error_string(int err) {

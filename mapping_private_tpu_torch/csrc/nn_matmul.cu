@@ -87,11 +87,12 @@ struct ExpansionPair {
 }  // namespace
 
 // Plain C entry point, loaded with ctypes; see nn_search::launch.
-extern "C" int nn_matmul_launch(const void* q, int nq, const void* r, int nr, int splits,
-                                void* part_d, void* part_i, void* counters, void* idx,
-                                void* sq, void* stream) {
-  return nn_search::launch<ExpansionPair>(q, nq, r, nr, splits, part_d, part_i, counters,
-                                          idx, sq, stream);
+extern "C" int nn_matmul_launch(const void* q, int nq, const void* r, int nr,
+                                int stretch, int rows, void* part_d, void* part_i,
+                                int n_counters, void* counters, void* idx, void* sq,
+                                void* stream) {
+  return nn_search::launch<ExpansionPair>(q, nq, r, nr, stretch, rows, part_d, part_i,
+                                  n_counters, counters, idx, sq, stream);
 }
 
 extern "C" const char* nn_matmul_error_string(int err) {

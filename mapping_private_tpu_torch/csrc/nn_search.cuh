@@ -65,7 +65,6 @@ constexpr int kBlock = 128;        // threads per block
 constexpr int kQueries = 2;        // queries per thread
 constexpr int kTile = 2048;        // refs per shared-memory tile
 constexpr int kGroup = 8;          // refs per tree minimum; a multiple of 4
-constexpr int kStretchAlign = 32;  // a stretch starts on a 128-byte boundary of each row
 
 // A pair policy provides:
 //   kRows                      floats kept per ref in shared memory (3 or 4)
@@ -76,13 +75,6 @@ constexpr int kStretchAlign = 32;  // a stretch starts on a 128-byte boundary of
 //                              all threads: copy refs [base, base + n) into
 //                              s[row][0, n) and fill [n, n_pad) with refs whose
 //                              distance is never '<' anything
-
-// Refs per stretch when `nr` refs are split `splits` ways; the launch makes
-// ceil(nr / stretch) stretches, which is at most `splits`.
-inline int stretch_len(int nr, int splits) {
-  const int even = (nr + splits - 1) / splits;
-  return (even + kStretchAlign - 1) / kStretchAlign * kStretchAlign;
-}
 
 // One group of refs out of shared memory: kGroup / 4 16-byte loads per row,
 // each a broadcast (every thread of the warp reads the same words).
@@ -241,16 +233,23 @@ __global__ void __launch_bounds__(kBlock)
 }
 
 // Launches on `stream` and does not synchronise; returns cudaGetLastError()
-// (0 on success).  `splits` > 1 needs a workspace of `splits` x nq floats
-// and ints and one zeroed counter per query tile of kBlock queries.
+// (0 on success).  The caller owns the geometry of the split: `stretch` refs
+// go to each block of a query tile, which makes ceil(nr / stretch) stretches.
+// More than one needs a workspace of `rows` x nq floats and ints and
+// `n_counters` zeroed ticket counters, one per query tile of kBlock x
+// kQueries queries; a grid that would write past either is refused with
+// cudaErrorInvalidValue and nothing is launched.
 template <class Pair>
-int launch(const void* q, int nq, const void* refs, int nr, int splits, void* part_d,
-           void* part_i, void* counters, void* idx, void* sq, void* stream) {
-  if (nq <= 0 || nr <= 0 || splits <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int stretch = stretch_len(nr, splits);
+int launch(const void* q, int nq, const void* refs, int nr, int stretch, int rows,
+           void* part_d, void* part_i, int n_counters, void* counters, void* idx,
+           void* sq, void* stream) {
+  if (nq <= 0 || nr <= 0 || stretch <= 0) return static_cast<int>(cudaErrorInvalidValue);
   constexpr int tile_q = kBlock * kQueries;
   const dim3 grid((nq + tile_q - 1) / tile_q, (nr + stretch - 1) / stretch);
-  if (grid.y > 65535u || (grid.y > 1u && (!part_d || !part_i || !counters)))
+  if (grid.y > 65535u) return static_cast<int>(cudaErrorInvalidValue);
+  if (grid.y > 1u && (!part_d || !part_i || !counters || rows < 0 || n_counters < 0 ||
+                      grid.y > static_cast<unsigned>(rows) ||
+                      grid.x > static_cast<unsigned>(n_counters)))
     return static_cast<int>(cudaErrorInvalidValue);
   search_kernel<Pair><<<grid, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(q), nq, static_cast<const float*>(refs), nr, stretch,

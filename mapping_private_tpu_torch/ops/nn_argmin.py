@@ -17,7 +17,7 @@ Contract, shared by both:
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Tuple
 
 import torch
 
@@ -82,16 +82,13 @@ def nn_argmin_prepared(
     return _launch(query_xyz.contiguous(), prepared.contiguous())
 
 
-def _launch(q: torch.Tensor, rt: torch.Tensor,
-            splits: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the kernel; ``splits`` (how many blocks share the refs of one
-    query tile) is chosen from the sizes and the card unless given."""
+def _launch(q: torch.Tensor, rt: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     global launches
     from mapping_private_tpu_torch.ops.nn_search import search
 
     if q.shape[0] == 0:
         return (torch.empty((0,), dtype=torch.int32, device=q.device),
                 torch.empty((0,), dtype=torch.float32, device=q.device))
-    out = search("nn_argmin", q, rt, rt.shape[1], splits)
+    out = search("nn_argmin", q, rt, rt.shape[1])
     launches += 1
     return out

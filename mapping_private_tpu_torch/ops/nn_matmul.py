@@ -20,7 +20,7 @@ Contract, shared by both:
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Tuple
 
 import torch
 
@@ -90,16 +90,13 @@ def nn_matmul(
     return _launch(query_xyz.contiguous(), ref_xyz.contiguous())
 
 
-def _launch(q: torch.Tensor, r: torch.Tensor,
-            splits: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the kernel; ``splits`` (how many blocks share the refs of one
-    query tile) is chosen from the sizes and the card unless given."""
+def _launch(q: torch.Tensor, r: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     global launches
     from mapping_private_tpu_torch.ops.nn_search import search
 
     if q.shape[0] == 0:
         return (torch.empty((0,), dtype=torch.int32, device=q.device),
                 torch.empty((0,), dtype=torch.float32, device=q.device))
-    out = search("nn_matmul", q, r, r.shape[0], splits)
+    out = search("nn_matmul", q, r, r.shape[0])
     launches += 1
     return out

@@ -6,8 +6,12 @@ a block a tile of ``QUERY_TILE`` of them, and ``splits`` blocks share a
 query tile, each searching one contiguous stretch of the refs; the block
 that finishes last merges the stretches in ascending order.  This module
 is the Python side of that: how many ways to split (a pure function of the
-sizes and the card's SM count), the sizes of the workspace that follows
-from it, and the launch itself.  The constants mirror the header's.
+sizes and the card's SM count), the length of a stretch and the sizes of
+the workspace that follow from it, and the launch itself.  The kernel is
+told the stretch, the workspace rows and the number of counters and
+refuses a grid that would exceed them; of the header's constants this
+module mirrors the query tile (for the counters) and the ref tile (for the
+choice of the split).
 """
 from __future__ import annotations
 
@@ -20,7 +24,7 @@ BLOCK_THREADS = 128  # kBlock
 QUERIES_PER_THREAD = 2  # kQueries
 QUERY_TILE = BLOCK_THREADS * QUERIES_PER_THREAD  # queries per block
 REF_TILE = 2048  # kTile: refs per shared-memory tile
-STRETCH_ALIGN = 32  # kStretchAlign: a stretch is a multiple of this many refs
+STRETCH_ALIGN = 32  # a stretch starts on a 128-byte boundary of each row of refs
 # Blocks of one launch that an SM is given at most, so that all of them are
 # resident at once (shared memory allows 6 of nn_matmul's and 9 of
 # nn_argmin's, registers 8 and 10) and each SM's share of the work is its
@@ -62,8 +66,7 @@ def split_count(nq: int, nr: int, sm_count: int) -> int:
 
 
 def stretch_len(nr: int, splits: int) -> int:
-    """Refs per stretch (the header's ``stretch_len``): an even share,
-    rounded up to STRETCH_ALIGN."""
+    """Refs per stretch: an even share, rounded up to STRETCH_ALIGN."""
     return _ceil_div(_ceil_div(nr, splits), STRETCH_ALIGN) * STRETCH_ALIGN
 
 
@@ -86,10 +89,17 @@ def sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
-# (device index, stream) -> zeroed int32 ticket counters.  A kernel leaves
-# them zeroed, so they are filled once, when they are made or must grow;
-# launches on one stream run in order, so a stream owns its counters.
+# (device index, stream) -> zeroed int32 ticket counters.  A kernel that
+# runs to its end leaves them zeroed, so they are filled once, when they are
+# made or must grow; launches on one stream run in order, so a stream owns
+# its counters.  Two things would break that and are not supported: a launch
+# that dies on the card (the process has lost its CUDA context then anyway),
+# and capturing a stream's FIRST split launch into a CUDA graph, which would
+# capture the fill with it; launch once before capturing.
 _counters: Dict[Tuple[int, int], torch.Tensor] = {}
+
+# gridDim.y of the newest launch: the stretches it really made
+last_stretches = 0
 
 
 def _ticket_counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
@@ -106,6 +116,7 @@ def search(kernel: str, q: torch.Tensor, refs: torch.Tensor, nr: int,
     CUDA tensors: (nq, 3) queries against ``nr`` refs in the kernel's own
     layout -> (idx (nq,) int32, sq (nq,) f32), nq > 0.  ``splits`` is
     chosen by ``split_count`` unless given."""
+    global last_stretches
     from mapping_private_tpu_torch._build import launch
 
     nq = q.shape[0]
@@ -121,12 +132,18 @@ def search(kernel: str, q: torch.Tensor, refs: torch.Tensor, nr: int,
         stream = torch.cuda.current_stream(device).cuda_stream
         # the partials may be freed on return: the allocator hands their memory
         # out again only to work queued on this stream after the kernel
-        workspace = []
+        part_d = part_i = counters = None
         if rows:
-            workspace = [torch.empty((rows, nq), dtype=torch.float32, device=device),
-                         torch.empty((rows, nq), dtype=torch.int32, device=device),
-                         _ticket_counters(device, stream, n_counters)]
-        part_d, part_i, counters = [t.data_ptr() for t in workspace] or [None, None, None]
-        launch(kernel, q.data_ptr(), nq, refs.data_ptr(), nr, splits, part_d, part_i, counters,
-               idx.data_ptr(), sq.data_ptr(), stream)
+            part_d = torch.empty((rows, nq), dtype=torch.float32, device=device)
+            part_i = torch.empty((rows, nq), dtype=torch.int32, device=device)
+            counters = _ticket_counters(device, stream, n_counters)
+        try:
+            launch(kernel, q.data_ptr(), nq, refs.data_ptr(), nr, stretch_len(nr, splits), rows,
+                   part_d.data_ptr() if rows else None, part_i.data_ptr() if rows else None,
+                   counters.numel() if rows else 0, counters.data_ptr() if rows else None,
+                   idx.data_ptr(), sq.data_ptr(), stream)
+        except Exception:
+            _counters.pop((device.index, stream), None)  # their state is unknown now
+            raise
+    last_stretches = max(rows, 1)
     return idx, sq

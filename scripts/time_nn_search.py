@@ -1,17 +1,19 @@
 #!/usr/bin/env python3
-"""Time the exact 1-NN kernels (nn_argmin, nn_matmul) on the card.
+"""Time the exact 1-NN kernels of the PyTorch/CUDA port (nn_argmin,
+nn_matmul) alone on the card.
 
 Run from the root of a checkout, on a machine with an NVIDIA GPU and nvcc:
 
-    python3 mapping_private_tpu_torch/tools/time_nn_search.py [--splits 1,2,4,7]
+    python3 scripts/time_nn_search.py [--splits 1,2,4,7]
 
-It imports the package from the current directory, so the same file times
-any tree: to compare two trees on one card, unpack the other one beside
-this one and run the script in turns (other, this, this, other), each run
-from its tree's root.  Only the public wrappers are used unless
-``--splits`` is given; that option needs a tree whose wrappers take the
-number of ref stretches, and times each given number beside the one the
-wrapper would choose.
+The scenes and the timer are ``chip_smoke.py``'s, of the tree this file
+lies in; ``mapping_private_tpu_torch`` is imported from the current
+directory, so the same file times any tree: to compare two trees on one
+card, unpack the other one's package beside this tree and run this file in
+turns (other, this, this, other), each run from its tree's root.  Only the public wrappers are used unless
+``--splits`` is given; that option needs a tree with ``ops/nn_search.py``
+and times each given number of ref stretches beside the one the wrapper
+chooses.
 
 Shapes: 20,000 x 20,000 (a pairwise ICP sweep), 20,000 queries against a
 65,536-row map of which a quarter is dead (a tracker sweep), 200,000 x
@@ -23,6 +25,7 @@ one JSON object {"card": ..., "ms": {kernel shape [splits]: ms}}.
 import argparse
 import json
 import os
+import pathlib
 import statistics
 import subprocess
 import sys
@@ -30,30 +33,13 @@ import sys
 import numpy as np
 
 
-def surface(n: int, seed: int, half: float = 2.0) -> np.ndarray:
-    """z = 0.4 sin(1.8x) + 0.3 cos(2.2y) sampled on [-half, half]^2."""
-    rng = np.random.default_rng(seed)
-    xy = rng.uniform(-half, half, (n, 2))
-    z = 0.4 * np.sin(1.8 * xy[:, 0]) + 0.3 * np.cos(2.2 * xy[:, 1])
-    return np.column_stack([xy, z]).astype(np.float32)
-
-
-def event_ms(torch, fn, reps: int) -> float:
-    for _ in range(2):
-        fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--splits", default="", help="comma-separated numbers of ref stretches to time as well")
     args = ap.parse_args(argv)
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
+    from chip_smoke import big_pair, event_ms, surface
+
     sys.path.insert(0, os.getcwd())
     import torch
 
@@ -66,25 +52,27 @@ def main(argv=None) -> int:
                           capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
     print(card, flush=True)
     dev = torch.device("cuda")
-    to_dev = lambda a: torch.from_numpy(a).to(dev)  # noqa: E731
-    map_rows = surface(65_536, 2)
+    map_rows = surface(65_536, 7)
     map_rows[49_152:] = PAD_COORD
+    big_tgt, big_src, _ = big_pair()
     shapes = {
         "20000x20000": (surface(20_000, 1), surface(20_000, 0), 200),
         "20000x65536_map": (surface(20_000, 1), map_rows, 100),
-        "200000x200000": (surface(200_000, 3, 2.5), surface(200_000, 4, 2.5), 5),
+        "200000x200000": (big_src, big_tgt, 5),
         "dead_queries_20000x20000": (np.full((20_000, 3), -PAD_COORD, np.float32), surface(20_000, 0), 200),
     }
     splits = [int(s) for s in args.splits.split(",") if s]
+    if splits:
+        from mapping_private_tpu_torch.ops.nn_search import search
     out = {}
     for name, (q_np, r_np, reps) in shapes.items():
-        q, r = to_dev(q_np), to_dev(r_np)
+        q, r = torch.from_numpy(q_np).to(dev), torch.from_numpy(r_np).to(dev)
         prep = nn_argmin.prepare_nn_ref_argmin(r)
         calls = {f"nn_argmin {name}": lambda: nn_argmin.nn_argmin_prepared(q, prep),
                  f"nn_matmul {name}": lambda: nn_matmul.nn_matmul(q, r)}
         for s in splits:
-            calls[f"nn_argmin {name} splits={s}"] = lambda s=s: nn_argmin._launch(q, prep, s)
-            calls[f"nn_matmul {name} splits={s}"] = lambda s=s: nn_matmul._launch(q, r, s)
+            calls[f"nn_argmin {name} splits={s}"] = lambda s=s: search("nn_argmin", q, prep, len(r), s)
+            calls[f"nn_matmul {name} splits={s}"] = lambda s=s: search("nn_matmul", q, r, len(r), s)
         turns = {k: [] for k in calls}
         for _ in range(5):
             for k, fn in calls.items():

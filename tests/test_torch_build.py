@@ -4,6 +4,8 @@ A kernel's library is named after a hash of its source, of every header in
 ``csrc/`` and of the compiler flags, so an edit of a shared header can not
 load a stale library.  Checked on a temporary copy of ``csrc/``: nothing
 is compiled, no nvcc is needed."""
+import ctypes
+import re
 import shutil
 
 import pytest
@@ -66,6 +68,17 @@ def test_every_source_that_includes_the_header_is_a_kernel():
     users = [p.stem for p in _build.CSRC_DIR.glob("*.cu") if '#include "nn_search.cuh"' in p.read_text()]
     assert sorted(users) == ["nn_argmin", "nn_matmul"]
     assert set(users) <= set(_build.KERNELS)
+
+
+@pytest.mark.parametrize("name", sorted(_build.KERNELS))
+def test_argument_types_follow_the_entry_point(name):
+    """``KERNELS[name]`` lists, in order, the parameters of the source's
+    ``extern "C" int <name>_launch(...)``: ``int`` or a pointer."""
+    text = _build.source_path(name).read_text()
+    params = re.search(rf'extern "C" int {name}_launch\(([^)]*)\)', text).group(1).split(",")
+    want = [ctypes.c_void_p if "*" in p else ctypes.c_int for p in params]
+    assert all("*" in p or p.split()[0] == "int" for p in params)
+    assert _build.KERNELS[name] == want
 
 
 def test_unknown_kernel_raises():

@@ -11,10 +11,13 @@ around a boundary between two blocks.  How many ways to split, and the
 workspace that follows, are pure functions tested here on the CPU.  The
 JAX package is imported only by the parity tests, so ``-m cuda
 --noconftest`` runs the card tests on a machine without jax."""
+import re
+
 import numpy as np
 import pytest
 import torch
 
+from mapping_private_tpu_torch import _build
 from mapping_private_tpu_torch.core.cloud import PAD_COORD
 from mapping_private_tpu_torch.ops import nn_argmin, nn_search
 
@@ -223,6 +226,23 @@ def test_workspace_sizes(nq, nr, splits, want):
     assert nn_search.workspace_sizes(nq, nr, splits) == want
 
 
+@pytest.mark.parametrize("constant,mirror", [("kBlock", "BLOCK_THREADS"), ("kQueries", "QUERIES_PER_THREAD"),
+                                             ("kTile", "REF_TILE")])
+def test_header_constants_match_their_mirrors(constant, mirror):
+    header = (_build.CSRC_DIR / "nn_search.cuh").read_text()
+    (value,) = re.findall(rf"constexpr int {constant} = (\d+);", header)
+    assert int(value) == getattr(nn_search, mirror)
+    assert nn_search.QUERY_TILE == nn_search.BLOCK_THREADS * nn_search.QUERIES_PER_THREAD
+
+
+def test_stretch_geometry_lives_in_python_only():
+    """The launch is told the stretch, the workspace rows and the counters
+    and checks its grid against them; the header derives none of it."""
+    header = (_build.CSRC_DIR / "nn_search.cuh").read_text()
+    assert "int stretch, int rows" in header and "int n_counters" in header
+    assert not re.search(r"\bsplits\b|kStretchAlign|stretch_len", header)
+
+
 @pytest.mark.parametrize("bad", [(0, 5, 132), (5, 0, 132), (5, 5, 0)])
 def test_split_count_rejects_empty(bad):
     with pytest.raises(ValueError):
@@ -298,10 +318,35 @@ def test_kernel_split_boundaries_on_card(case, cuda_device):
     prep = nn_argmin.prepare_nn_ref_argmin(torch.from_numpy(r).to(cuda_device))
     idx_p, sq_p = (t.cpu().numpy() for t in nn_argmin.nn_argmin_plain(qd, prep))
     for s in (splits, 1, None):  # as asked, one stretch, the wrapper's own choice
-        idx_k, sq_k = (t.cpu().numpy() for t in nn_argmin._launch(qd, prep, s))
+        idx_k, sq_k = (t.cpu().numpy() for t in nn_search.search("nn_argmin", qd, prep, prep.shape[1], s))
         np.testing.assert_array_equal(idx_k, idx_p)
         np.testing.assert_array_equal(sq_k.view(np.int32), sq_p.view(np.int32))
         np.testing.assert_array_equal(idx_k[: len(want)], want)
     # the merging block leaves the ticket counters zeroed for the next launch
     for counters in nn_search._counters.values():
         assert int(counters.count_nonzero()) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,n_counters", [(2, 4), (3, 1)])
+def test_launch_refuses_a_grid_beyond_its_workspace(rows, n_counters, cuda_device):
+    """3 stretches x 2 query tiles need 3 workspace rows and 2 counters: with
+    fewer of either nothing is launched and the outputs stay untouched."""
+    nq, nr = nn_search.QUERY_TILE + 1, 96
+    q = torch.zeros((nq, 3), device=cuda_device)
+    rt = torch.zeros((3, nr), device=cuda_device)
+    part_d = torch.empty((3, nq), device=cuda_device)
+    part_i = torch.empty((3, nq), dtype=torch.int32, device=cuda_device)
+    counters = torch.zeros(4, dtype=torch.int32, device=cuda_device)
+    idx = torch.full((nq,), -7, dtype=torch.int32, device=cuda_device)
+    sq = torch.full((nq,), -7.0, device=cuda_device)
+    args = [q.data_ptr(), nq, rt.data_ptr(), nr, 32, rows, part_d.data_ptr(), part_i.data_ptr(), n_counters,
+            counters.data_ptr(), idx.data_ptr(), sq.data_ptr(), torch.cuda.current_stream().cuda_stream]
+    with pytest.raises(RuntimeError, match="invalid"):
+        _build.launch("nn_argmin", *args)
+    torch.cuda.synchronize()
+    assert bool((idx == -7).all()) and bool((sq == -7.0).all()) and int(counters.count_nonzero()) == 0
+    args[5], args[8] = 3, 2  # enough of both: the launch goes through
+    _build.launch("nn_argmin", *args)
+    torch.cuda.synchronize()
+    assert bool((idx == 0).all()) and bool((sq == 0.0).all()) and int(counters.count_nonzero()) == 0
