@@ -18,17 +18,21 @@ Phases (any failure exits non-zero before the result line):
    1 x 5, dead queries/refs, duplicated refs (with different aux rows,
    inside one 512-ref tie window and across two), lattice midpoints
    (exact ties) and refs duplicated on both sides of every boundary
-   between the stretches that nn_argmin and nn_matmul split the refs
-   into.  Indices must be identical and squared distances bit for
+   between the stretches that the kernels split the refs into (each
+   boundary inside a tie window of nn_gather's, whose copies there are
+   averaged); for nn_gather also every ref dead with fewer than 512 of
+   them (vpu mode: the padding of the last window ties).  Indices must be
+   identical and squared distances bit for
    bit equal (kernel and plain version round the same f32 operations in
    the same order, unfused); gathered rows must be identical for single
    winners and within 8 ulp of the largest value for tie averages (the
    plain version sums tied rows in the library's order).  The nn_argmin
    tie cases are also held against a numpy lowest-index oracle, the
-   nn_gather tie case against the averages worked out by hand.  Kernel
+   nn_gather tie cases against the averages worked out by hand.  Kernel
    and plain times at 20k x 20k (CUDA events, alternating turns), beside
    the least time the card could take (the larger of FP32 issue slots
-   over 132 SMs x 128 lanes x the SM clock, and bytes over 3.35 TB/s).
+   over 132 SMs x 128 lanes x the SM clock, and bytes over 3.35 TB/s),
+   and the number of ref stretches the launch made.
    nn_argmin also at the main path's other shapes, 20,000 x 65,536 (a
    tracker sweep against the map, a quarter of it dead rows) and 200,000 x
    200,000 (nn_1nn's brute engine): first held against the plain version
@@ -154,7 +158,7 @@ def nn_cases(pad: float, full: bool, boundaries):
     """(name, queries, refs, check against the numpy oracle too, has exact
     ties).  ``full`` adds the two large cases of the nn_argmin check.
     ``boundaries(nq, nr)`` gives the first ref of every stretch but the
-    first that nn_argmin and nn_matmul split nr refs into for nq queries."""
+    first that the kernels split nr refs into for nq queries."""
     rng = np.random.default_rng(123)
     uni = lambda n: rng.uniform(-2, 2, (n, 3)).astype(np.float32)  # noqa: E731
     dead_q, dead_r = surface(N_POINTS, 21), surface(N_POINTS, 22)
@@ -426,10 +430,14 @@ def main(argv=None) -> int:
     # -- phase 2: kernels vs plain on the card -------------------------------
     results = {}  # kernel name -> dict(max_abs_err, ms, plain_ms, bound_ms, bound_by)
     max_abs_err = 0.0
-    n_split = len(boundaries(3000, N_POINTS)) + 1
-    print(f"the tie case's 20,000 refs are split into {n_split} stretches for its 3,000 queries ({sms} SMs)")
+    bs = boundaries(3000, N_POINTS)
+    n_split = len(bs) + 1
+    print(f"the tie case's 20,000 refs are split into {n_split} stretches for its 3,000 queries ({sms} SMs); "
+          f"boundaries at {bs}")
     if n_split < 2:
         fail("the stretch-boundary case has no boundary")
+    if not any(b % TIE_WINDOW and (b - 20) // TIE_WINDOW == (b + 19) // TIE_WINDOW for b in bs):
+        fail("no stretch boundary of the tie case falls inside a tie window with both copies")
     for name, q_np, r_np, with_oracle, _ in nn_cases(PAD_COORD, True, boundaries):
         q = to_dev(q_np)
         prep = nn_argmin.prepare_nn_ref_argmin(to_dev(r_np))
@@ -482,11 +490,14 @@ def main(argv=None) -> int:
     tgt_xyz, tgt_nrm = tgt_cloud.padded_xyz()[:N_POINTS], tgt_cloud.channel("normal")[:N_POINTS]
     rng = np.random.default_rng(5)
     tq, tr, taux, twant = tie_case()
+    dq, dr = rng.uniform(-2, 2, (300, 3)).astype(np.float32), np.full((100, 3), PAD_COORD, np.float32)
+    daux = rng.normal(size=dr.shape).astype(np.float32)
     for dist in nn_gather.DIST_MODES:
         max_abs_err = 0.0
         cases = [(n, q, r, None if n.startswith("main_path") else rng.normal(size=r.shape).astype(np.float32), ties)
                  for n, q, r, _, ties in small_cases]
         cases.append(("ties_in_and_across_windows_2000x2011", tq, tr, taux, True))
+        cases.append(("all_refs_dead_300x100", dq, dr, daux, True))
         for name, q_np, r_np, aux_np, ties in cases:
             q = to_dev(q_np)
             if aux_np is None:
@@ -495,6 +506,9 @@ def main(argv=None) -> int:
                 rt, nt = nn_gather.prepare_nn_ref(to_dev(r_np), to_dev(aux_np))
             out_k = nn_gather.nn_gather_prepared(q, rt, nt, dist=dist)
             torch.cuda.synchronize()
+            if name.startswith("ties_across") and nn_search.last_stretches != n_split:
+                fail(f"nn_gather[{dist}] {name}: built for {n_split} stretches, the launch made "
+                     f"{nn_search.last_stretches}")
             out_p = nn_gather.nn_gather_plain(q, rt, nt, dist)
             sq_k, qs_k, ns_k, sq_p, qs_p, ns_p = (t.cpu().numpy() for t in (*out_k, *out_p))
             n_bits = int((bits(sq_k) != bits(sq_p)).sum())
@@ -514,6 +528,23 @@ def main(argv=None) -> int:
                 d_hand = float(np.abs(ns_k[:200] - twant).max())
                 msg += f", vs tie averages by hand {d_hand:.3g}"
                 if d_hand > tol_n or (qs_k[:200] != q_np[:200]).any():
+                    fail(msg)
+            if name.startswith("ties_across") and dist != "mxu_fast":
+                # query 20 k + m sits on ref b - 20 + m, copied to b + m across
+                # boundary k, in the same tie window: their aux rows averaged
+                n_on = 20 * len(bs)
+                want = np.concatenate([(aux_np[b - 20 : b] + aux_np[b : b + 20]) / 2 for b in bs])
+                d_hand = float(np.abs(ns_k[:n_on] - want).max())
+                msg += f", vs tie averages across {len(bs)} stretch boundaries by hand {d_hand:.3g}"
+                if d_hand > tol_n or (qs_k[:n_on] != q_np[:n_on]).any():
+                    fail(msg)
+            if name.startswith("all_refs_dead"):
+                # 100 dead refs tie; in vpu mode the 412 padding refs of the
+                # window too, with aux 0 (the JAX package's padding)
+                want = aux_np.sum(0) / (TIE_WINDOW if dist == "vpu" else len(r_np))
+                d_hand = float(np.abs(ns_k - want).max())
+                msg += f", vs the dead refs' average by hand {d_hand:.3g}"
+                if d_hand > tol_n or float(np.abs(qs_k - PAD_COORD).max()) > tol_q:
                     fail(msg)
             print(msg, flush=True)
             if n_bits or d_q > tol_q or d_n > tol_n or (n_rows and not ties) or not np.isfinite(sq_k).all():
@@ -537,8 +568,9 @@ def main(argv=None) -> int:
     for name, (kernel_fn, plain_fn, bytes_moved) in timed.items():
         ms, p_ms, kern, plain = time_turns(torch, kernel_fn, plain_fn)  # the last turn is the kernel's
         b_ms, b_by, before_ms = bound_ms(name, N_POINTS, N_POINTS, bytes_moved, sm_clock_hz)
-        results[name].update(ms=ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)
-        stretches = "" if name.startswith("nn_gather") else f"{nn_search.last_stretches} ref stretches, "
+        results[name].update(ms=ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                             stretches=nn_search.last_stretches)
+        stretches = f"{nn_search.last_stretches} ref stretches, "
         print(f"{name} 20000x20000: {stretches}kernel {ms:.4f} ms (turns {[round(x, 4) for x in kern]}), "
               f"plain {p_ms:.4f} ms (turns {[round(x, 4) for x in plain]}), bound {b_ms:.4f} ms by {b_by} "
               f"({b_ms / ms:.3f} of the kernel's time [{before_ms / ms:.3f} by the earlier count of "
@@ -790,7 +822,7 @@ def main(argv=None) -> int:
             name=name, route="cuda", source=source, replaces=replaces,
             launches=sum(launches[name].values()), launches_by_path=launches[name],
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
-            bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None,
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"], library_ms=None, stretches=r["stretches"],
             **({"shapes": r["shapes"]} if "shapes" in r else {})))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

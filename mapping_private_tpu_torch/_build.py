@@ -36,8 +36,9 @@ KERNELS = {
     "nn_argmin": [_VP, _CI, _VP, _CI, _CI, _CI, _VP, _VP, _CI, _VP, _VP, _VP, _VP],
     # q, nq, r, nr, stretch, rows, part_d, part_i, n_counters, counters, idx, sq, stream
     "nn_matmul": [_VP, _CI, _VP, _CI, _CI, _CI, _VP, _VP, _CI, _VP, _VP, _VP, _VP],
-    # mode, q, nq, rt, nt, nr, sq, q_sel, n_sel, stream
-    "nn_gather": [_CI, _VP, _CI, _VP, _VP, _CI, _VP, _VP, _VP, _VP],
+    # q, nq, rt, nr, stretch, rows, part_d, part_i, n_counters, counters, mode, nt, sq, q_sel,
+    # n_sel, stream
+    "nn_gather": [_VP, _CI, _VP, _CI, _CI, _CI, _VP, _VP, _CI, _VP, _CI, _VP, _VP, _VP, _VP, _VP],
 }
 
 

@@ -23,48 +23,29 @@
 // once per block from device memory, so bytes are negligible.
 //
 // What the design does about that is in nn_search.cuh, the skeleton shared
-// with nn_argmin.cu: refs split across blocks, two queries per thread, a
+// with nn_argmin.cu and nn_gather.cu: refs split across blocks, two queries per thread, a
 // tree minimum of 8 distances in the hot loop, the index found afterwards
 // in one group, a
 // merge by the last block in ascending stretch order (a slightly negative
 // d2 needs no special care there: the merge compares floats, not bits).
-// This file adds the pair.  r2 is computed once per ref while the tile is
-// staged, not once per pair.  The row-major (nr, 3) refs are split into
+// The distance is nn_pairs.cuh's ExpansionForm, which nn_gather.cu's "mxu"
+// modes share (written so that d2 matches the plain version bit for bit).
+// This file adds the staging: r2 is computed once per ref while the tile is
+// staged, not once per pair, and the row-major (nr, 3) refs are split into
 // x/y/z/r2 rows in shared memory so a warp reads one word per row as a
-// broadcast, four refs per 16-byte load.  Products and sums are written
-// with __fmul_rn/__fadd_rn so nvcc cannot contract them into FMAs and d2
-// matches the plain version bit for bit; the one FMA used,
-// fma(-2, cross, q2 + r2), is exact in its product (a power of two), so it
-// rounds like the two-step form.  The tail of a tile is filled with NaN
+// broadcast, four refs per 16-byte load.  The tail of a tile is filled with NaN
 // refs: their d2 is NaN, which fminf drops and which is never '<' or '=='
 // anything (+inf refs would give inf - inf).
 
+#include "nn_pairs.cuh"
 #include "nn_search.cuh"
 
 namespace {
 
-__device__ __forceinline__ float sq_norm(float x, float y, float z) {
-  return __fadd_rn(__fadd_rn(__fmul_rn(x, x), __fmul_rn(y, y)), __fmul_rn(z, z));
-}
+using nn_search::sq_norm;
 
-struct ExpansionPair {
-  static constexpr int kRows = 4;  // x, y, z, r2
-
-  struct Query {
-    float x, y, z, q2;
-  };
-
-  static __device__ __forceinline__ Query query(float qx, float qy, float qz) {
-    return {qx, qy, qz, sq_norm(qx, qy, qz)};
-  }
-
-  static __device__ __forceinline__ float dist(const Query& q, float rx, float ry,
-                                               float rz, float r2) {
-    const float cross = __fadd_rn(__fadd_rn(__fmul_rn(q.x, rx), __fmul_rn(q.y, ry)),
-                                  __fmul_rn(q.z, rz));
-    return __fmaf_rn(-2.0f, cross, __fadd_rn(q.q2, r2));
-  }
-
+// the distance is nn_pairs.cuh's; the staging reads (nr, 3) refs
+struct ExpansionPair : nn_search::ExpansionForm {
   static __device__ __forceinline__ void stage(const float* __restrict__ r, int,
                                                int base, int n, int n_pad,
                                                float (*s)[nn_search::kTile]) {
@@ -91,8 +72,9 @@ extern "C" int nn_matmul_launch(const void* q, int nq, const void* r, int nr,
                                 int stretch, int rows, void* part_d, void* part_i,
                                 int n_counters, void* counters, void* idx, void* sq,
                                 void* stream) {
-  return nn_search::launch<ExpansionPair>(q, nq, r, nr, stretch, rows, part_d, part_i,
-                                  n_counters, counters, idx, sq, stream);
+  return nn_search::launch<ExpansionPair, nn_search::StoreIndex>(
+      q, nq, r, nr, stretch, rows, part_d, part_i, n_counters, counters,
+      {static_cast<int*>(idx), static_cast<float*>(sq)}, stream);
 }
 
 extern "C" const char* nn_matmul_error_string(int err) {

@@ -1,8 +1,11 @@
 // Skeleton shared by the exact 1-NN searches for Hopper (sm_90a):
-// nn_argmin.cu and nn_matmul.cu instantiate it with a "pair" policy that
-// says how a tile of refs is staged and how one query-ref distance is
-// computed.  Everything else is here: the split of the refs across blocks,
-// the hot loop, the late search for the index and the merge.
+// nn_argmin.cu, nn_matmul.cu and nn_gather.cu instantiate it with a "pair"
+// policy that says how a tile of refs is staged and how one query-ref
+// distance is computed (the shared ones are in nn_pairs.cuh), and an
+// "output" policy that says what becomes of each query's final (least d2,
+// lowest index): stored as they are, or turned into the gathered rows of
+// the winner's tie window.  Everything else is here: the split of the refs
+// across blocks, the hot loop, the late search for the index and the merge.
 //
 // What bounds such a search: FP32 issue slots.  A pair costs 8 or 7
 // arithmetic instructions that must not be fused (the squared distance is
@@ -50,9 +53,9 @@
 //   computes while one waits for its tile, and no time was found to win by
 //   overlapping the copy inside a block.
 //
-// The ragged ends are masked here: queries past nq store nothing, and a
-// tile's tail up to a whole group is filled by the policy with refs that
-// never win.
+// The ragged ends are masked here: the output policy is told which queries
+// lie past nq, and a tile's tail up to a whole group is filled by the pair
+// policy with refs that never win.
 
 #pragma once
 
@@ -75,6 +78,40 @@ constexpr int kGroup = 8;          // refs per tree minimum; a multiple of 4
 //                              all threads: copy refs [base, base + n) into
 //                              s[row][0, n) and fill [n, n_pad) with refs whose
 //                              distance is never '<' anything
+//
+// An output policy provides:
+//   Args                       its outputs and extra inputs, one struct passed
+//                              by value to the kernel
+//   kTies                      whether it is told of ties (below); carrying the
+//                              flag costs about 2 instructions a group of refs
+//   write(args, query, refs, nr, i, live, d2, idx, tie)
+//                              called once per query slot of a thread, by all
+//                              32 lanes of a warp together (it may shuffle with
+//                              a full mask): query i's final least d2 and the
+//                              lowest index that reaches it; with kTies, `tie`
+//                              is false only if no other ref has that d2 (true
+//                              may also mean an equal d2 the search could not
+//                              rule out); `live` is false for a slot past nq,
+//                              whose other arguments mean nothing
+
+// The output of nn_argmin and nn_matmul: the index and d2 as they are.
+struct StoreIndex {
+  static constexpr bool kTies = false;
+
+  struct Args {
+    int* idx;
+    float* sq;
+  };
+
+  template <class Query>
+  static __device__ __forceinline__ void write(const Args& a, const Query&, const float*, int,
+                                               int i, bool live, float d, int ix, bool) {
+    if (live) {
+      a.idx[i] = ix;
+      a.sq[i] = d;
+    }
+  }
+};
 
 // One group of refs out of shared memory: kGroup / 4 16-byte loads per row,
 // each a broadcast (every thread of the warp reads the same words).
@@ -104,12 +141,11 @@ __device__ __forceinline__ void group_dists(const typename Pair::Query& qu,
   }
 }
 
-template <class Pair>
+template <class Pair, class Out>
 __global__ void __launch_bounds__(kBlock)
     search_kernel(const float* __restrict__ q, int nq, const float* __restrict__ refs,
                   int nr, int stretch, float* part_d, int* part_i,
-                  unsigned int* counters, int* __restrict__ idx_out,
-                  float* __restrict__ sq_out) {
+                  unsigned int* counters, const typename Out::Args out) {
   __shared__ __align__(16) float s[Pair::kRows][kTile];
   __shared__ bool merges;
 
@@ -118,6 +154,7 @@ __global__ void __launch_bounds__(kBlock)
   typename Pair::Query qu[kQueries];
   float best_d[kQueries];
   int best_i[kQueries];
+  bool tie[kQueries];  // with Out::kTies: another ref may have best_d
 #pragma unroll
   for (int t = 0; t < kQueries; ++t) {
     const int i = i0 + t * kBlock;
@@ -130,6 +167,7 @@ __global__ void __launch_bounds__(kBlock)
     qu[t] = Pair::query(qx, qy, qz);
     best_d[t] = CUDART_INF_F;
     best_i[t] = 0;
+    tie[t] = false;
   }
 
   const int begin = blockIdx.y * stretch;
@@ -160,7 +198,10 @@ __global__ void __launch_bounds__(kBlock)
 #pragma unroll
           for (int k = 0; k < w; ++k) d[k] = fminf(d[k], d[k + w]);
         }
-        if (d[0] < run_d[t]) {
+        const bool better = d[0] < run_d[t];
+        // a group that reaches the running best without beating it ties
+        if constexpr (Out::kTies) tie[t] = !better && (tie[t] || d[0] == run_d[t]);
+        if (better) {
           run_d[t] = d[0];
           run_g[t] = j;
         }
@@ -173,13 +214,16 @@ __global__ void __launch_bounds__(kBlock)
         float d[kGroup];
         load_group<Pair>(s, run_g[t], r);
         group_dists<Pair>(qu[t], r, d);
+        int hits = 0;
 #pragma unroll
         for (int k = kGroup - 1; k >= 0; --k) {
           if (d[k] == run_d[t]) {
             best_d[t] = d[k];
             best_i[t] = base + run_g[t] + k;
+            ++hits;
           }
         }
+        if constexpr (Out::kTies) tie[t] = tie[t] || hits > 1;
       }
     }
   }
@@ -188,10 +232,7 @@ __global__ void __launch_bounds__(kBlock)
 #pragma unroll
     for (int t = 0; t < kQueries; ++t) {
       const int i = i0 + t * kBlock;
-      if (i < nq) {
-        idx_out[i] = best_i[t];
-        sq_out[i] = best_d[t];
-      }
+      Out::write(out, qu[t], refs, nr, i, i < nq, best_d[t], best_i[t], tie[t]);
     }
     return;
   }
@@ -201,7 +242,8 @@ __global__ void __launch_bounds__(kBlock)
     const int i = i0 + t * kBlock;
     if (i < nq) {
       part_d[blockIdx.y * nq_s + i] = best_d[t];
-      part_i[blockIdx.y * nq_s + i] = best_i[t];
+      // with kTies a tie is stored as ~index, < 0 (indices are < 2^31)
+      part_i[blockIdx.y * nq_s + i] = Out::kTies && tie[t] ? ~best_i[t] : best_i[t];
     }
   }
   __threadfence();  // the partials are visible before the ticket is taken
@@ -213,22 +255,36 @@ __global__ void __launch_bounds__(kBlock)
   __syncthreads();
   if (!merges) return;
   __threadfence();
-  for (int t = 0; t < kQueries; ++t) {
+  for (int t = 0; t < kQueries; ++t) {  // every lane takes every turn: write() is warp-wide
     const int i = i0 + t * kBlock;
-    if (i >= nq) break;
-    // __ldcg reads from L2, where the other blocks' stores are
-    float d = __ldcg(&part_d[i]);
-    int ix = __ldcg(&part_i[i]);
-    for (unsigned int k = 1; k < gridDim.y; ++k) {
-      const float dk = __ldcg(&part_d[k * nq_s + i]);
-      const int ik = __ldcg(&part_i[k * nq_s + i]);
-      if (dk < d) {
-        d = dk;
-        ix = ik;
+    const bool live = i < nq;
+    float d = CUDART_INF_F;
+    int ix = 0;
+    if (live) {
+      // __ldcg reads from L2, where the other blocks' stores are
+      d = __ldcg(&part_d[i]);
+      ix = __ldcg(&part_i[i]);
+      for (unsigned int k = 1; k < gridDim.y; ++k) {
+        const float dk = __ldcg(&part_d[k * nq_s + i]);
+        const int ik = __ldcg(&part_i[k * nq_s + i]);
+        if constexpr (Out::kTies) {
+          // an equal partial ties; a smaller one brings its own flag
+          if (dk == d && ix >= 0) ix = ~ix;
+        }
+        if (dk < d) {
+          d = dk;
+          ix = ik;
+        }
       }
     }
-    idx_out[i] = ix;
-    sq_out[i] = d;
+    // qu[t] picked by constant indices: indexed by t, the array would live
+    // in local memory
+    typename Pair::Query qt = qu[0];
+#pragma unroll
+    for (int k = 1; k < kQueries; ++k)
+      if (t == k) qt = qu[k];
+    const bool t_ix = Out::kTies && ix < 0;
+    Out::write(out, qt, refs, nr, i, live, d, t_ix ? ~ix : ix, t_ix);
   }
 }
 
@@ -238,11 +294,12 @@ __global__ void __launch_bounds__(kBlock)
 // More than one needs a workspace of `rows` x nq floats and ints and
 // `n_counters` zeroed ticket counters, one per query tile of kBlock x
 // kQueries queries; a grid that would write past either is refused with
-// cudaErrorInvalidValue and nothing is launched.
-template <class Pair>
+// cudaErrorInvalidValue and nothing is launched.  `out` holds the output
+// policy's pointers.
+template <class Pair, class Out>
 int launch(const void* q, int nq, const void* refs, int nr, int stretch, int rows,
-           void* part_d, void* part_i, int n_counters, void* counters, void* idx,
-           void* sq, void* stream) {
+           void* part_d, void* part_i, int n_counters, void* counters,
+           const typename Out::Args& out, void* stream) {
   if (nq <= 0 || nr <= 0 || stretch <= 0) return static_cast<int>(cudaErrorInvalidValue);
   constexpr int tile_q = kBlock * kQueries;
   const dim3 grid((nq + tile_q - 1) / tile_q, (nr + stretch - 1) / stretch);
@@ -251,11 +308,10 @@ int launch(const void* q, int nq, const void* refs, int nr, int stretch, int row
                       grid.y > static_cast<unsigned>(rows) ||
                       grid.x > static_cast<unsigned>(n_counters)))
     return static_cast<int>(cudaErrorInvalidValue);
-  search_kernel<Pair><<<grid, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
+  search_kernel<Pair, Out><<<grid, kBlock, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(q), nq, static_cast<const float*>(refs), nr, stretch,
       static_cast<float*>(part_d), static_cast<int*>(part_i),
-      static_cast<unsigned int*>(counters), static_cast<int*>(idx),
-      static_cast<float*>(sq));
+      static_cast<unsigned int*>(counters), out);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -84,11 +84,11 @@ def nn_argmin_prepared(
 
 def _launch(q: torch.Tensor, rt: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     global launches
-    from mapping_private_tpu_torch.ops.nn_search import search
+    from mapping_private_tpu_torch.ops.nn_search import search_index
 
     if q.shape[0] == 0:
         return (torch.empty((0,), dtype=torch.int32, device=q.device),
                 torch.empty((0,), dtype=torch.float32, device=q.device))
-    out = search("nn_argmin", q, rt, rt.shape[1])
+    out = search_index("nn_argmin", q, rt, rt.shape[1])
     launches += 1
     return out

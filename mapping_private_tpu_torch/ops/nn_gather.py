@@ -21,9 +21,16 @@ Contract, shared by both:
   window all refs whose d² equals the window minimum are averaged (xyz
   and aux, each weighted 1/count); a later window replaces the carried
   result only on a strictly smaller minimum.  For true duplicates the
-  average is the point itself.  Unlike the JAX package, refs are not
-  padded to a whole window with +PAD_COORD rows: that shows only when
-  every ref is dead.
+  average is the point itself;
+- in ``"vpu"`` mode the refs end as if padded to a whole window with refs
+  at (PAD_COORD, PAD_COORD, PAD_COORD) whose aux row is 0, as the JAX
+  package's ``prepare_nn_ref`` pads them: such a ref ties with a dead one,
+  so where the last window is partial and its minimum is a dead ref's
+  (every ref dead and N < 512, say), the missing rows join the average.
+  ``rt`` itself is not padded: a padding column of three rows would have
+  r² = 3·PAD_COORD² and tie in the ``"mxu"`` modes too, where the JAX
+  package's eight-row column has 8·PAD_COORD² and never does.  So the
+  ``"mxu"`` modes add nothing.
 """
 from __future__ import annotations
 
@@ -31,6 +38,7 @@ from typing import Tuple
 
 import torch
 
+from mapping_private_tpu_torch.core.cloud import PAD_COORD
 from mapping_private_tpu_torch.ops.nn_matmul import expansion_sq_dists, sq_norm_rows
 
 # Kernel launches made through nn_gather_prepared (read and reset by
@@ -44,7 +52,6 @@ DIST_MODES = ("vpu", "mxu", "mxu_fast")
 
 # Elements of one (rows, N) block in the plain version: 16 Mi floats.
 _CHUNK_ELEMS = 1 << 24
-_INT_MAX = 2**31 - 1
 
 
 def prepare_nn_ref(ref_xyz: torch.Tensor, ref_aux: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -69,8 +76,10 @@ def nn_gather_plain(
     n = rt.shape[1]
     n_win = -(-n // TIE_WINDOW)
     pad = n_win * TIE_WINDOW - n
-    # (6, n_win, W) value rows, zero in the padding (weight 0 there)
-    vals = torch.nn.functional.pad(torch.cat([rt, nt]), (0, pad)).view(6, n_win, TIE_WINDOW)
+    # the refs padded to whole windows, as the JAX package pads them: xyz
+    # PAD_COORD, aux 0; (6, n_win, W) value rows
+    rt_p = torch.nn.functional.pad(rt, (0, pad), value=PAD_COORD)
+    vals = torch.cat([rt_p, torch.nn.functional.pad(nt, (0, pad))]).view(6, n_win, TIE_WINDOW)
     if dist != "vpu":
         r2 = sq_norm_rows(rt.T)
         cr = _bf16_round(rt) if dist == "mxu_fast" else rt
@@ -78,15 +87,16 @@ def nn_gather_plain(
     sq_parts, sel_parts = [], []
     for s in range(0, query_xyz.shape[0], rows):
         q = query_xyz[s : s + rows]
-        if dist == "vpu":
-            dx = q[:, 0:1] - rt[0][None, :]
-            dy = q[:, 1:2] - rt[1][None, :]
-            dz = q[:, 2:3] - rt[2][None, :]
+        if dist == "vpu":  # the padding takes part
+            dx = q[:, 0:1] - rt_p[0][None, :]
+            dy = q[:, 1:2] - rt_p[1][None, :]
+            dz = q[:, 2:3] - rt_p[2][None, :]
             d2 = dx * dx + dy * dy + dz * dz
-        else:
+        else:  # the padding never ties (weight 0)
             cq = _bf16_round(q) if dist == "mxu_fast" else q
             d2 = expansion_sq_dists(q, sq_norm_rows(q), cq, cr, r2)
-        d2 = torch.nn.functional.pad(d2, (0, pad), value=torch.inf).view(-1, n_win, TIE_WINDOW)
+            d2 = torch.nn.functional.pad(d2, (0, pad), value=torch.inf)
+        d2 = d2.view(-1, n_win, TIE_WINDOW)
         wmin = d2.amin(dim=2)  # (rows, n_win)
         w = torch.argmin(wmin, dim=1)  # first minimum: strict '<' across windows
         r_ = torch.arange(d2.shape[0], device=d2.device)
@@ -138,21 +148,18 @@ def nn_gather(
     return nn_gather_prepared(query_xyz, rt, nt, dist=dist)
 
 
-def _launch(q, rt, nt, dist):
+def _launch(q, rt, nt, dist, splits=None):
+    """The kernel through ``nn_search.search``; ``splits`` as there."""
     global launches
-    from mapping_private_tpu_torch._build import launch
+    from mapping_private_tpu_torch.ops.nn_search import search
 
-    nq, nr = q.shape[0], rt.shape[1]
-    if q.numel() > _INT_MAX or rt.numel() > _INT_MAX:
-        raise ValueError(f"{nq} queries x {nr} refs: sizes exceed int32 indexing")
+    nq = q.shape[0]
     sq = torch.empty((nq,), dtype=torch.float32, device=q.device)
     q_sel = torch.empty((nq, 3), dtype=torch.float32, device=q.device)
     n_sel = torch.empty((nq, 3), dtype=torch.float32, device=q.device)
     if nq == 0:
         return sq, q_sel, n_sel
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        launch("nn_gather", DIST_MODES.index(dist), q.data_ptr(), nq, rt.data_ptr(), nt.data_ptr(),
-               nr, sq.data_ptr(), q_sel.data_ptr(), n_sel.data_ptr(), stream)
+    # the output policy's arguments of csrc/nn_gather.cu's entry point
+    search("nn_gather", q, rt, rt.shape[1], (DIST_MODES.index(dist), nt, sq, q_sel, n_sel), splits)
     launches += 1
     return sq, q_sel, n_sel

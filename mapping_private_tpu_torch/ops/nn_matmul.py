@@ -92,11 +92,11 @@ def nn_matmul(
 
 def _launch(q: torch.Tensor, r: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     global launches
-    from mapping_private_tpu_torch.ops.nn_search import search
+    from mapping_private_tpu_torch.ops.nn_search import search_index
 
     if q.shape[0] == 0:
         return (torch.empty((0,), dtype=torch.int32, device=q.device),
                 torch.empty((0,), dtype=torch.float32, device=q.device))
-    out = search("nn_matmul", q, r, r.shape[0])
+    out = search_index("nn_matmul", q, r, r.shape[0])
     launches += 1
     return out

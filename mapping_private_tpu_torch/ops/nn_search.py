@@ -1,7 +1,8 @@
 """Launch geometry and workspace of the exact 1-NN search kernels.
 
-``csrc/nn_search.cuh`` is the skeleton that ``csrc/nn_argmin.cu`` and
-``csrc/nn_matmul.cu`` share: a thread owns ``QUERIES_PER_THREAD`` queries,
+``csrc/nn_search.cuh`` is the skeleton that ``csrc/nn_argmin.cu``,
+``csrc/nn_matmul.cu`` and ``csrc/nn_gather.cu`` share: a thread owns
+``QUERIES_PER_THREAD`` queries,
 a block a tile of ``QUERY_TILE`` of them, and ``splits`` blocks share a
 query tile, each searching one contiguous stretch of the refs; the block
 that finishes last merges the stretches in ascending order.  This module
@@ -16,7 +17,7 @@ choice of the split).
 from __future__ import annotations
 
 import functools
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import torch
 
@@ -26,9 +27,9 @@ QUERY_TILE = BLOCK_THREADS * QUERIES_PER_THREAD  # queries per block
 REF_TILE = 2048  # kTile: refs per shared-memory tile
 STRETCH_ALIGN = 32  # a stretch starts on a 128-byte boundary of each row of refs
 # Blocks of one launch that an SM is given at most, so that all of them are
-# resident at once (shared memory allows 6 of nn_matmul's and 9 of
-# nn_argmin's, registers 8 and 10) and each SM's share of the work is its
-# number of blocks.
+# resident at once (shared memory allows 6 of a 4-row tile's blocks, those
+# of nn_matmul and nn_gather's mxu modes, and 9 of a 3-row one's) and each
+# SM's share of the work is its number of blocks.
 BLOCKS_PER_SM = 6
 # A split whose fill is within this share of the best one is as good: take
 # the smallest such, for the shortest merge.
@@ -111,11 +112,14 @@ def _ticket_counters(device: torch.device, stream: int, n: int) -> torch.Tensor:
 
 
 def search(kernel: str, q: torch.Tensor, refs: torch.Tensor, nr: int,
-           splits: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch ``kernel`` ("nn_argmin" or "nn_matmul") for contiguous f32
-    CUDA tensors: (nq, 3) queries against ``nr`` refs in the kernel's own
-    layout -> (idx (nq,) int32, sq (nq,) f32), nq > 0.  ``splits`` is
-    chosen by ``split_count`` unless given."""
+           out: Sequence[Union[torch.Tensor, int]], splits: Optional[int] = None) -> None:
+    """Launch ``kernel`` ("nn_argmin", "nn_matmul" or "nn_gather") for
+    contiguous f32 CUDA tensors: (nq, 3) queries against ``nr`` refs in the
+    kernel's own layout, nq > 0.  ``out`` holds the arguments of the
+    kernel's output policy, which follow the ticket counters in its entry
+    point (a tensor is passed as its data pointer): (idx (nq,) int32, sq
+    (nq,) f32) for the first two.  ``splits`` is chosen by
+    ``split_count`` unless given."""
     global last_stretches
     from mapping_private_tpu_torch._build import launch
 
@@ -123,8 +127,6 @@ def search(kernel: str, q: torch.Tensor, refs: torch.Tensor, nr: int,
     if q.numel() > _INT_MAX or refs.numel() > _INT_MAX:
         raise ValueError(f"{nq} queries x {nr} refs: sizes exceed int32 indexing")
     device = q.device
-    idx = torch.empty((nq,), dtype=torch.int32, device=device)
-    sq = torch.empty((nq,), dtype=torch.float32, device=device)
     if splits is None:
         splits = split_count(nq, nr, sm_count(device.index))
     rows, n_counters = workspace_sizes(nq, nr, splits)
@@ -141,9 +143,18 @@ def search(kernel: str, q: torch.Tensor, refs: torch.Tensor, nr: int,
             launch(kernel, q.data_ptr(), nq, refs.data_ptr(), nr, stretch_len(nr, splits), rows,
                    part_d.data_ptr() if rows else None, part_i.data_ptr() if rows else None,
                    counters.numel() if rows else 0, counters.data_ptr() if rows else None,
-                   idx.data_ptr(), sq.data_ptr(), stream)
+                   *(a.data_ptr() if isinstance(a, torch.Tensor) else a for a in out), stream)
         except Exception:
             _counters.pop((device.index, stream), None)  # their state is unknown now
             raise
     last_stretches = max(rows, 1)
+
+
+def search_index(kernel: str, q: torch.Tensor, refs: torch.Tensor, nr: int,
+                 splits: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``search`` for a kernel whose output is the index: (idx (nq,)
+    int32, sq (nq,) f32)."""
+    idx = torch.empty((q.shape[0],), dtype=torch.int32, device=q.device)
+    sq = torch.empty((q.shape[0],), dtype=torch.float32, device=q.device)
+    search(kernel, q, refs, nr, (idx, sq), splits)
     return idx, sq

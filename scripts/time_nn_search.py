@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the exact 1-NN kernels of the PyTorch/CUDA port (nn_argmin,
-nn_matmul) alone on the card.
+"""Time the 1-NN kernels of the PyTorch/CUDA port (nn_argmin, nn_matmul,
+nn_gather in its three modes) alone on the card.
 
 Run from the root of a checkout, on a machine with an NVIDIA GPU and nvcc:
 
@@ -10,15 +10,16 @@ The scenes and the timer are ``chip_smoke.py``'s, of the tree this file
 lies in; ``mapping_private_tpu_torch`` is imported from the current
 directory, so the same file times any tree: to compare two trees on one
 card, unpack the other one's package beside this tree and run this file in
-turns (other, this, this, other), each run from its tree's root.  Only the public wrappers are used unless
-``--splits`` is given; that option needs a tree with ``ops/nn_search.py``
-and times each given number of ref stretches beside the one the wrapper
-chooses.
+turns (other, this, this, other), each run from its tree's root.  Only the
+public wrappers are used unless ``--splits`` is given; that option needs a
+tree whose ``ops/nn_search.py`` has ``search_index`` and times each given
+number of ref stretches beside the one the wrapper chooses.
 
 Shapes: 20,000 x 20,000 (a pairwise ICP sweep), 20,000 queries against a
 65,536-row map of which a quarter is dead (a tracker sweep), 200,000 x
 200,000 (the brute engine of nn_1nn), and 20,000 dead queries (-PAD_COORD:
-every ref ~1e8 away, ties everywhere).  Each time is the median of five
+every ref ~1e8 away, ties everywhere).  nn_argmin and nn_matmul run at all
+four, nn_gather (aux rows from a seed) at the first and the last.  Each time is the median of five
 turns of back-to-back launches between two CUDA events; the last line is
 one JSON object {"card": ..., "ms": {kernel shape [splits]: ms}}.
 """
@@ -44,7 +45,7 @@ def main(argv=None) -> int:
     import torch
 
     from mapping_private_tpu_torch.core.cloud import PAD_COORD
-    from mapping_private_tpu_torch.ops import nn_argmin, nn_matmul
+    from mapping_private_tpu_torch.ops import nn_argmin, nn_gather, nn_matmul
 
     if not torch.cuda.is_available():
         raise SystemExit("time_nn_search: needs an NVIDIA GPU")
@@ -61,18 +62,28 @@ def main(argv=None) -> int:
         "200000x200000": (big_src, big_tgt, 5),
         "dead_queries_20000x20000": (np.full((20_000, 3), -PAD_COORD, np.float32), surface(20_000, 0), 200),
     }
+    gathered = ("20000x20000", "dead_queries_20000x20000")
     splits = [int(s) for s in args.splits.split(",") if s]
     if splits:
-        from mapping_private_tpu_torch.ops.nn_search import search
+        from mapping_private_tpu_torch.ops.nn_search import search_index
     out = {}
     for name, (q_np, r_np, reps) in shapes.items():
         q, r = torch.from_numpy(q_np).to(dev), torch.from_numpy(r_np).to(dev)
         prep = nn_argmin.prepare_nn_ref_argmin(r)
         calls = {f"nn_argmin {name}": lambda: nn_argmin.nn_argmin_prepared(q, prep),
                  f"nn_matmul {name}": lambda: nn_matmul.nn_matmul(q, r)}
+        if name in gathered:
+            aux = torch.from_numpy(np.random.default_rng(5).normal(size=r_np.shape).astype(np.float32)).to(dev)
+            rt, nt = nn_gather.prepare_nn_ref(r, aux)
+            for dist in nn_gather.DIST_MODES:
+                calls[f"nn_gather:{dist} {name}"] = lambda d=dist: nn_gather.nn_gather_prepared(q, rt, nt, dist=d)
         for s in splits:
-            calls[f"nn_argmin {name} splits={s}"] = lambda s=s: search("nn_argmin", q, prep, len(r), s)
-            calls[f"nn_matmul {name} splits={s}"] = lambda s=s: search("nn_matmul", q, r, len(r), s)
+            calls[f"nn_argmin {name} splits={s}"] = lambda s=s: search_index("nn_argmin", q, prep, len(r), s)
+            calls[f"nn_matmul {name} splits={s}"] = lambda s=s: search_index("nn_matmul", q, r, len(r), s)
+            if name in gathered:
+                for dist in nn_gather.DIST_MODES:
+                    calls[f"nn_gather:{dist} {name} splits={s}"] = (
+                        lambda s=s, d=dist: nn_gather._launch(q, rt, nt, d, s))
         turns = {k: [] for k in calls}
         for _ in range(5):
             for k, fn in calls.items():

@@ -63,11 +63,12 @@ def test_library_path_follows_the_flags(csrc_copy, monkeypatch):
 
 
 def test_every_source_that_includes_the_header_is_a_kernel():
-    """The sources on the shared skeleton include it by its bare name, which
-    nvcc resolves through ``-I csrc``."""
-    users = [p.stem for p in _build.CSRC_DIR.glob("*.cu") if '#include "nn_search.cuh"' in p.read_text()]
-    assert sorted(users) == ["nn_argmin", "nn_matmul"]
-    assert set(users) <= set(_build.KERNELS)
+    """The sources on the shared skeleton include it and its shared pairs by
+    their bare names, which nvcc resolves through ``-I csrc``: all three
+    kernels."""
+    for header in ("nn_search.cuh", "nn_pairs.cuh"):
+        users = [p.stem for p in _build.CSRC_DIR.glob("*.cu") if f'#include "{header}"' in p.read_text()]
+        assert sorted(users) == ["nn_argmin", "nn_gather", "nn_matmul"] == sorted(_build.KERNELS)
 
 
 @pytest.mark.parametrize("name", sorted(_build.KERNELS))

@@ -318,7 +318,7 @@ def test_kernel_split_boundaries_on_card(case, cuda_device):
     prep = nn_argmin.prepare_nn_ref_argmin(torch.from_numpy(r).to(cuda_device))
     idx_p, sq_p = (t.cpu().numpy() for t in nn_argmin.nn_argmin_plain(qd, prep))
     for s in (splits, 1, None):  # as asked, one stretch, the wrapper's own choice
-        idx_k, sq_k = (t.cpu().numpy() for t in nn_search.search("nn_argmin", qd, prep, prep.shape[1], s))
+        idx_k, sq_k = (t.cpu().numpy() for t in nn_search.search_index("nn_argmin", qd, prep, prep.shape[1], s))
         np.testing.assert_array_equal(idx_k, idx_p)
         np.testing.assert_array_equal(sq_k.view(np.int32), sq_p.view(np.int32))
         np.testing.assert_array_equal(idx_k[: len(want)], want)

@@ -17,15 +17,23 @@ tests/test_pallas_kernels.py runs it, in all three distance modes:
 
 Exact ties (duplicated refs with different aux) are averaged inside one
 aligned window of 512 refs and resolved by strict '<' across windows;
-both rules are held against the JAX kernel and a numpy oracle.  The CUDA
-kernel is held against the plain version on the card (marked ``cuda``;
-skipped without a GPU)."""
+both rules are held against the JAX kernel and a numpy oracle.  In
+``vpu`` mode the refs end as if padded to a whole window with
+(PAD_COORD, PAD_COORD, PAD_COORD) refs of aux 0, as the JAX package pads
+them, which shows where dead refs hold the minimum of a partial last
+window (every ref dead and N < 512, say).  The CUDA kernel is held
+against the plain version on the card (marked ``cuda``; skipped without
+a GPU), with the refs split into stretches so that tie windows straddle a
+boundary between two blocks."""
+import re
+
 import numpy as np
 import pytest
 import torch
 
+from mapping_private_tpu_torch import _build
 from mapping_private_tpu_torch.core.cloud import PAD_COORD
-from mapping_private_tpu_torch.ops import nn_gather
+from mapping_private_tpu_torch.ops import nn_gather, nn_search
 
 EPS = np.finfo(np.float32).eps
 W = nn_gather.TIE_WINDOW
@@ -88,7 +96,11 @@ def _true_d2(q, r):
 
 def _oracle_vpu(q, r, a):
     """numpy, window by window: average the exact ties of a window,
-    replace the carry only on a strictly smaller window minimum."""
+    replace the carry only on a strictly smaller window minimum; the refs
+    padded to a whole window as the JAX package pads them."""
+    pad = -len(r) % W
+    r = np.concatenate([r, np.full((pad, 3), PAD_COORD, np.float32)])
+    a = np.concatenate([a, np.zeros((pad, 3), np.float32)])
     sq = np.full(len(q), np.inf, np.float32)
     qs = np.zeros((len(q), 3), np.float64)
     ns = np.zeros((len(q), 3), np.float64)
@@ -196,6 +208,64 @@ def test_mxu_fast_outcomes(case):
     assert np.isfinite(sq_t).all()
 
 
+def _dead_refs(n, seed):
+    """Every ref dead (+PAD_COORD); live and dead queries."""
+    q, r, a = _random(40, n, seed)
+    r[:] = PAD_COORD
+    q[::4] = -PAD_COORD
+    return q, r, a
+
+
+def _half_dead(n, seed):
+    """Half of the refs dead; live queries, dead ones, and queries on the
+    dead refs' point, whose minimum (0) is the dead refs'."""
+    q, r, a = _random(40, n, seed)
+    r[np.random.default_rng(seed).permutation(n)[: n // 2]] = PAD_COORD
+    q[::4] = -PAD_COORD
+    q[1::4] = PAD_COORD
+    return q, r, a
+
+
+DEAD_CASES = {
+    "all_refs_dead_100": lambda: _dead_refs(100, 40),
+    "all_refs_dead_700": lambda: _dead_refs(700, 41),
+    "half_refs_dead_300": lambda: _half_dead(300, 42),
+}
+
+
+@pytest.mark.parametrize("dist", ["vpu", "mxu"])
+@pytest.mark.parametrize("case", sorted(DEAD_CASES))
+def test_dead_refs_match_jax_interpret(case, dist):
+    """Where dead refs hold the minimum, the JAX kernel's padding joins the
+    average in vpu mode when the last window is partial (N = 100: the aux
+    rows' sum over 512, not over 100) and never in mxu mode (its padding's
+    r² sums eight rows).  sq exactly on the rows that dead refs win (a
+    live row elsewhere may differ in its last bit: XLA's CPU backend may
+    fuse the JAX side's products into FMAs); gathered rows within 1e-6,
+    the xyz relative to their size, except that the JAX side's f32
+    one-hot product sums 512 rows of PAD_COORD / 512 to 1e8 - 168, where
+    the exact average, the numpy oracle's and the port's, is 1e8 (2e-6)."""
+    q, r, a = DEAD_CASES[case]()
+    sq_t, qs_t, ns_t = _port(q, r, a, dist)
+    sq_j, qs_j, ns_j = _jax(q, r, a, dist)
+    dead_won = qs_t[:, 0] > 0.5 * PAD_COORD
+    assert dead_won.sum() >= 10
+    np.testing.assert_array_equal(sq_t[dead_won], sq_j[dead_won])
+    np.testing.assert_allclose(sq_t, sq_j, rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(ns_t, ns_j, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(qs_t, qs_j, rtol=2e-6, atol=1e-6)
+    if dist == "vpu":
+        sq_o, qs_o, ns_o = _oracle_vpu(q, r, a)
+        np.testing.assert_array_equal(sq_t, sq_o)
+        np.testing.assert_allclose(qs_t, qs_o, rtol=1e-6, atol=1e-6)
+        np.testing.assert_allclose(ns_t, ns_o, rtol=0, atol=1e-6)
+    if case == "all_refs_dead_100":  # worked by hand: 100 dead refs and 412 padding refs tie
+        live = q[:, 0] > -1e7
+        want = a.sum(0) / (512 if dist == "vpu" else 100)
+        np.testing.assert_allclose(ns_t[live], np.broadcast_to(want, ns_t[live].shape), rtol=0, atol=1e-6)
+        np.testing.assert_array_equal(qs_t[live], PAD_COORD)
+
+
 def test_plain_blocks_over_query_rows(monkeypatch):
     q, r, a = _ties(4)
     want = _port(q, r, a, "mxu")
@@ -281,3 +351,116 @@ def test_kernel_matches_plain_on_card(case, dist, cuda_device):
     np.testing.assert_array_equal(sq_k, sq_p)
     np.testing.assert_allclose(qs_k, qs_p, rtol=0, atol=4 * EPS * max(1.0, float(np.abs(qs_p).max())))
     np.testing.assert_allclose(ns_k, ns_p, rtol=0, atol=4 * EPS * max(1.0, float(np.abs(ns_p).max())))
+
+
+# -- the search skeleton's split of the refs (ops/nn_search.py) -------------
+
+def test_entry_point_extends_the_skeleton_launch():
+    """``nn_gather_launch`` takes ``nn_search::launch``'s arguments, as
+    ``nn_argmin_launch`` does, with the output policy's (mode, aux rows,
+    three outputs) in place of (idx, sq): what ``ops/nn_gather.py`` passes
+    through ``nn_search.search``."""
+    def names(kernel):
+        text = _build.source_path(kernel).read_text()
+        params = re.search(rf'extern "C" int {kernel}_launch\(([^)]*)\)', text).group(1).split(",")
+        return [p.split()[-1].lstrip("*") for p in params]
+
+    argmin, gather = names("nn_argmin"), names("nn_gather")
+    assert argmin[-3:] == ["idx", "sq", "stream"]
+    assert gather == argmin[:-3] + ["mode", "nt", "sq", "qsel", "nsel", "stream"]
+    assert _build.KERNELS["nn_gather"][:-6] == _build.KERNELS["nn_argmin"][:-3]
+
+
+def _split_cases():
+    """name -> (queries, refs, aux, stretches asked for, whether the data
+    has exact ties).  In the first, tie copies lie on both sides of a
+    stretch boundary inside one window (averaged) and in two windows of two
+    stretches (the first wins alone): its first 30 queries sit on them."""
+    cases = {}
+    nr, splits = 5000, 3
+    b = nn_search.stretch_len(nr, splits)
+    assert b % W and (b - 20) // W == (b + 19) // W  # the boundary falls inside a window
+    q, r, a = _random(400, nr, 30)
+    r[b : b + 20] = r[b - 20 : b]
+    r[2 * b : 2 * b + 10] = r[10:20]
+    q[:20], q[20:30] = r[b - 20 : b], r[10:20]
+    cases["ties_inside_a_window_across_a_boundary_3_stretches"] = (q, r, a, splits, True)
+    cases["one_query_4_stretches"] = (*_random(1, 9000, 31), 4, False)
+    cases["ragged_5_stretches"] = (*_random(513, 4099, 32), 5, False)
+    q, r, a = _dead(33)
+    q[:] = -PAD_COORD  # every ref ~1e8 away: d2 steps by ~2e9 there, ties everywhere
+    cases["all_queries_dead_3_stretches"] = (q, r, a, 3, True)
+    cases["all_refs_dead_100_2_stretches"] = (*_dead_refs(100, 34), 2, True)
+    cases["half_refs_dead_300_3_stretches"] = (*_half_dead(300, 35), 3, True)
+    return cases
+
+
+SPLIT_CASES = sorted(_split_cases())
+
+
+def _by_hand(q, r, a):
+    """The first case's 30 queries: (aux rows of the copies averaged, the
+    first copy's aux row alone)."""
+    b = nn_search.stretch_len(len(r), 3)
+    return np.concatenate([(a[b - 20 : b] + a[b : b + 20]) / 2, a[10:20]])
+
+
+@pytest.mark.parametrize("case", SPLIT_CASES)
+def test_split_cases_on_cpu_oracle(case):
+    """The cases themselves: the plain version equals the numpy oracle in
+    vpu mode, and in both exact modes the averages worked out by hand."""
+    q, r, a, _, _ = _split_cases()[case]
+    sq_t, qs_t, ns_t = _port(q, r, a, "vpu")
+    sq_o, qs_o, ns_o = _oracle_vpu(q, r, a)
+    np.testing.assert_array_equal(sq_t, sq_o)
+    np.testing.assert_allclose(qs_t, qs_o, rtol=1e-6, atol=2 * EPS)
+    np.testing.assert_allclose(ns_t, ns_o, rtol=0, atol=8 * EPS)
+    if case.startswith("ties_inside"):
+        for dist in ("vpu", "mxu"):
+            _, qs, ns = _port(q[:30], r, a, dist)
+            np.testing.assert_array_equal(qs, q[:30])
+            np.testing.assert_allclose(ns, _by_hand(q, r, a), rtol=0, atol=8 * EPS)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dist", nn_gather.DIST_MODES)
+@pytest.mark.parametrize("case", SPLIT_CASES)
+def test_kernel_split_boundaries_on_card(case, dist, cuda_device):
+    """At the stretches asked for, at one and at the wrapper's own choice:
+    sq bit for bit, gathered rows equal to the plain version's (tie
+    averages within 4 ulp of the largest value: the plain version sums the
+    tied rows in the library's order), the ticket counters zeroed after."""
+    q, r, a, splits, ties = _split_cases()[case]
+    qd = torch.from_numpy(q).to(cuda_device)
+    rt, nt = nn_gather.prepare_nn_ref(torch.from_numpy(r).to(cuda_device), torch.from_numpy(a).to(cuda_device))
+    sq_p, qs_p, ns_p = (t.cpu().numpy() for t in nn_gather.nn_gather_plain(qd, rt, nt, dist))
+    tol_q = 4 * EPS * max(1.0, float(np.abs(qs_p).max()))
+    tol_n = 4 * EPS * max(1.0, float(np.abs(ns_p).max()))
+    for s in (splits, 1, None):
+        sq_k, qs_k, ns_k = (t.cpu().numpy() for t in nn_gather._launch(qd, rt, nt, dist, s))
+        torch.cuda.synchronize()
+        if s == splits:
+            assert nn_search.last_stretches == nn_search.stretch_count(len(r), splits) > 1
+        np.testing.assert_array_equal(sq_k.view(np.int32), sq_p.view(np.int32))
+        np.testing.assert_allclose(qs_k, qs_p, rtol=0, atol=tol_q)
+        np.testing.assert_allclose(ns_k, ns_p, rtol=0, atol=tol_n)
+        if not ties:
+            np.testing.assert_array_equal(qs_k, qs_p)
+            np.testing.assert_array_equal(ns_k, ns_p)
+        if case.startswith("ties_inside") and dist != "mxu_fast":
+            np.testing.assert_array_equal(qs_k[:30], q[:30])
+            np.testing.assert_allclose(ns_k[:30], _by_hand(q, r, a), rtol=0, atol=8 * EPS)
+    for counters in nn_search._counters.values():
+        assert int(counters.count_nonzero()) == 0
+
+
+@pytest.mark.cuda
+def test_launch_refuses_an_unknown_mode(cuda_device):
+    nq, nr = 5, 40
+    q, rt, nt = (torch.zeros(shape, device=cuda_device) for shape in ((nq, 3), (3, nr), (3, nr)))
+    sq = torch.full((nq,), -7.0, device=cuda_device)
+    sel = torch.empty((nq, 3), device=cuda_device)
+    with pytest.raises(RuntimeError, match="invalid"):
+        nn_search.search("nn_gather", q, rt, nr, (len(nn_gather.DIST_MODES), nt, sq, sel, sel), 1)
+    torch.cuda.synchronize()
+    assert bool((sq == -7.0).all())

@@ -256,7 +256,7 @@ def test_kernel_split_boundaries_on_card(case, cuda_device):
     qd, rd = torch.from_numpy(q).to(cuda_device), torch.from_numpy(r).to(cuda_device)
     idx_p, sq_p = (t.cpu().numpy() for t in nn_matmul.nn_matmul_plain(qd, rd))
     for s in (splits, 1, None):  # as asked, one stretch, the wrapper's own choice
-        idx_k, sq_k = (t.cpu().numpy() for t in nn_search.search("nn_matmul", qd, rd, rd.shape[0], s))
+        idx_k, sq_k = (t.cpu().numpy() for t in nn_search.search_index("nn_matmul", qd, rd, rd.shape[0], s))
         np.testing.assert_array_equal(idx_k, idx_p)
         np.testing.assert_array_equal(sq_k.view(np.int32), sq_p.view(np.int32))
         np.testing.assert_array_equal(idx_k[: len(want)], want)
