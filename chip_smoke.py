@@ -70,12 +70,28 @@ Phases (any failure exits non-zero before the result line):
    map points, and the nn_argmin kernel launched at least (scans - 1) x
    icp-iters times by that run.  Then per-scan wall times (normals +
    track), warm.
+7. The tabletop slice (no NN kernel lies on it): a synthetic tabletop
+   frame of 307,200 points (one Kinect VGA frame) made from ``--seed``: a
+   1.2 x 0.8 m table at z = 0.75 with 2 mm noise, two boxes and two
+   cylinders standing on it, the floor and a wall, the points of each
+   surface in proportion to its area.  ``detect_table`` at the default
+   ``TableDetectorConfig()`` (8,192 downsampled rows, 256 hypotheses, 4
+   candidates, 16 objects): the table found, its plane within 0.02 m of
+   z = 0.75, 4 objects, each centre within 0.05 m of the centroid of its
+   object's points; then its warm wall time per call.  The
+   ``table_pipeline`` CLI on 3 such frames (each shifted a little) written
+   as PCD, with ``--box`` and ``--checkpoint``: one table, 4 objects with
+   the same names in every frame, each typed as placed (box or cylinder);
+   then the wall time of each of its stages on a warm frame (load, box
+   filter, denoise, detect, memory update).  The ``clean_table`` CLI on one
+   frame: 4 grasps, each above a placed object.
 
 ``python3 chip_smoke.py --profile`` builds the kernels and then, instead
-of phases 2-6, profiles with torch.profiler one warm pair of phase 3
-(normals + 20 ICP sweeps), one warm tracker step of phase 6 and phase 5's
-tiled ICP call (device time by kernel, launches, the device's idle
-share); it prints no result line.
+of phases 2-7, profiles with torch.profiler one warm pair of phase 3
+(normals + 20 ICP sweeps), one warm tracker step of phase 6, phase 5's
+tiled ICP call, and phase 7's denoise of a frame and ``detect_table``
+call (device time by kernel, launches, the device's idle share); it
+prints no result line.  ``--seed N`` (default 0) makes phase 7's frames.
 
 Every launch count is set to 0 just before a path is driven and read just
 after.  Prints, before the last line, one JSON line {"kernels": [...]}
@@ -85,6 +101,7 @@ last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Without a CUDA device it fails: nothing runs on the CPU instead.
 """
+import argparse
 import contextlib
 import io
 import json
@@ -108,6 +125,19 @@ MAP_ICP_ITERS = 10  # build_map's default sweep count
 MAP_T_TOL = 0.02  # final translation error, tests/test_scan_to_map.py's bound
 TIE_WINDOW = 512
 EPS = float(np.finfo(np.float32).eps)
+N_TABLE = 307_200  # one Kinect VGA frame, 640 x 480 (phase 7)
+TABLE_FRAMES = 3
+TABLE_Z = 0.75
+TABLE_HALF = (0.6, 0.4)  # the 1.2 x 0.8 m table top, centred on the origin
+TABLE_BOX = (-1.5, -1.5, 0.3, 1.5, 1.5, 1.6)  # the pipeline's --box: drops the floor
+# standing on the table: (kind, centre x, centre y, size); a box's size is
+# (dx, dy, height) and it shows its top and four sides, a cylinder's is
+# (radius, height) and it shows its side
+TABLE_OBJECTS = (("box", 0.30, 0.15, (0.12, 0.08, 0.18)),
+                 ("box", -0.30, 0.20, (0.16, 0.10, 0.14)),
+                 ("cylinder", 0.25, -0.20, (0.045, 0.24)),
+                 ("cylinder", -0.25, -0.18, (0.05, 0.20)))
+TABLE_SHIFT = (0.01, -0.005)  # frame k of the pipeline is moved by k times this
 
 # H100 SXM: SMs x FP32 lanes; bytes/s of HBM3 (NVIDIA's data sheet)
 SM_LANES = 132 * 128
@@ -277,6 +307,48 @@ def map_scan(k: int, se3_exp, torch):
     return T, ((world - T[:3, 3]) @ T[:3, :3]).astype(np.float32)
 
 
+def tabletop_frame(seed: int, shift=(0.0, 0.0)):
+    """Phase 7's frame: N_TABLE points on the table top (2 mm noise), the
+    objects of TABLE_OBJECTS, the floor (3 x 3 m at z = 0) and a wall (x =
+    1.4, 3 m wide, 2 m high), each surface's share of the points in
+    proportion to its area, all moved by ``shift`` in x, y.  Returns (xyz
+    (N_TABLE, 3) float32 shuffled, [(kind, centroid of the object's
+    points)])."""
+    rng = np.random.default_rng(seed)
+    sides = lambda dx, dy, h: (dx + dy) * 2 * h  # noqa: E731
+    areas = [4 * TABLE_HALF[0] * TABLE_HALF[1]]
+    for kind, _, _, size in TABLE_OBJECTS:
+        areas.append(size[0] * size[1] + sides(*size) if kind == "box" else 2 * np.pi * size[0] * size[1])
+    areas += [9.0, 6.0]  # floor, wall
+    counts = np.floor(N_TABLE * np.asarray(areas) / sum(areas)).astype(int)
+    counts[-1] += N_TABLE - counts.sum()
+    n_top = counts[0]
+    top = np.column_stack([rng.uniform(-1, 1, (n_top, 2)) * TABLE_HALF,
+                           TABLE_Z + rng.normal(0, 0.002, n_top)])
+    parts, truth = [top], []
+    for (kind, cx, cy, size), n in zip(TABLE_OBJECTS, counts[1:]):
+        if kind == "box":
+            dx, dy, h = size
+            # a face by area, then a uniform point on it: top, -x, +x, -y, +y
+            face = rng.choice(5, n, p=np.array([dx * dy, dy * h, dy * h, dx * h, dx * h]) / (dx * dy + sides(*size)))
+            p = rng.uniform(-0.5, 0.5, (n, 3)) * [dx, dy, h] + [0.0, 0.0, 0.5 * h]
+            p[face == 0, 2] = h
+            for f, (ax, v) in enumerate([(0, -dx / 2), (0, dx / 2), (1, -dy / 2), (1, dy / 2)], start=1):
+                p[face == f, ax] = v
+        else:
+            r, h = size
+            th = rng.uniform(0, 2 * np.pi, n)
+            p = np.column_stack([r * np.cos(th), r * np.sin(th), rng.uniform(0, h, n)])
+        p += [cx, cy, TABLE_Z]
+        parts.append(p)
+        truth.append((kind, p.mean(0) + [shift[0], shift[1], 0.0]))
+    n_floor, n_wall = counts[-2], counts[-1]
+    parts.append(np.column_stack([rng.uniform(-1.5, 1.5, (n_floor, 2)), np.zeros(n_floor)]))
+    parts.append(np.column_stack([np.full(n_wall, 1.4), rng.uniform(-1.5, 1.5, n_wall), rng.uniform(0, 2, n_wall)]))
+    xyz = np.concatenate(parts) + [shift[0], shift[1], 0.0]
+    return xyz[rng.permutation(N_TABLE)].astype(np.float32), truth
+
+
 def bits(a: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(a).view(np.int32)
 
@@ -317,10 +389,11 @@ def profile_call(torch, name: str, fn, smi: str):
         print(f"  {t:9.3f} ms {100 * t / dev_ms:5.1f}% {c:6d} x  {kname[:100]}")
 
 
-def profile_paths(torch, dev, smi: str):
+def profile_paths(torch, dev, smi: str, seed: int):
     """--profile: where the time goes in a pair of phase 3 (scan 1 onto scan
-    0), in a tracker step of phase 6 (scan 4 against the map of scans 0-3)
-    and in phase 5's tiled ICP call."""
+    0), in a tracker step of phase 6 (scan 4 against the map of scans 0-3),
+    in phase 5's tiled ICP call, and in phase 7's denoise of a box-filtered
+    frame and its detect_table call."""
     from mapping_private_tpu_torch.core.cloud import PointCloud
     from mapping_private_tpu_torch.core.se3 import se3_exp
     from mapping_private_tpu_torch.ops.normals import estimate_normals
@@ -359,13 +432,171 @@ def profile_paths(torch, dev, smi: str):
                  lambda: icp_point_to_plane_tiled(src, ones, tgt, ones, nrm, tile_size=BIG_RADIUS,
                                                   cap_per_cell=128, iters=6), smi)
 
+    from mapping_private_tpu_torch.models.table_detector import TableDetectorConfig, detect_table
+    from mapping_private_tpu_torch.ops.filters import box_filter, remove_statistical_outliers
+
+    frame, _ = tabletop_frame(seed)
+    boxed = box_filter(PointCloud.from_numpy(frame, device=dev), TABLE_BOX[:3], TABLE_BOX[3:])
+    denoise = lambda: remove_statistical_outliers(boxed, k=20, alpha=2.0, min_nr_pts=100)  # noqa: E731
+    profile_call(torch, f"denoise: remove_statistical_outliers(k=20) over a {N_TABLE}-row frame "
+                 f"({int(boxed.count())} live after the box filter)", denoise, smi)
+    cloud, _ = denoise()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    profile_call(torch, f"detect_table at the default config, that frame denoised ({int(cloud.count())} points)",
+                 lambda: detect_table(cloud, gen, TableDetectorConfig()), smi)
+
+
+def check_detection(det, truth, label: str):
+    """Phase 7's checks of one detect_table result against the frame's
+    placed objects; returns a line to print."""
+    import torch
+
+    plane = det.plane.cpu().numpy().astype(np.float64)
+    sizes, centres = det.object_sizes.cpu().numpy(), det.object_centers.cpu().numpy()
+    found_c = centres[sizes > 0]
+    z0 = -plane[3] / plane[2] if plane[2] else np.inf
+    want = np.stack([c for _, c in truth])
+    dist = np.linalg.norm(found_c[:, None, :] - want[None, :, :], axis=-1) if len(found_c) else np.zeros((0, len(want)))
+    nearest = dist.argmin(1) if len(found_c) else np.zeros(0, int)
+    msg = (f"{label}: found {bool(det.found)}, plane height {z0:.4f} (|dz| bound 0.02), objects "
+           f"{len(found_c)} of sizes {sizes[sizes > 0].tolist()}, centre errors "
+           f"{[float(f'{d:.3g}') for d in dist.min(1)] if len(found_c) else []} m (bound 0.05)")
+    if not bool(det.found) or abs(z0 - TABLE_Z) >= 0.02 or len(found_c) != len(truth):
+        fail(msg)
+    if sorted(nearest.tolist()) != list(range(len(truth))) or dist.min(1).max() >= 0.05:
+        fail(msg)
+    if not all(bool(torch.isfinite(t).all()) for t in (det.plane, det.object_centers, det.hull.radii)):
+        fail(f"{label}: non-finite output")
+    return msg
+
+
+def phase_tabletop(torch, dev, smi: str, seed: int):
+    """Phase 7: detect_table on a frame, the table_pipeline CLI on
+    TABLE_FRAMES frames and the clean_table CLI on one."""
+    from mapping_private_tpu_torch.apps import clean_table, table_pipeline
+    from mapping_private_tpu_torch.core.cloud import PointCloud
+    from mapping_private_tpu_torch.io.pcd import load_pcd, save_pcd
+    from mapping_private_tpu_torch.models.table_detector import TableDetectorConfig, detect_table
+    from mapping_private_tpu_torch.models.table_memory import TableMemory
+    from mapping_private_tpu_torch.ops.filters import box_filter, remove_statistical_outliers
+
+    cfg = TableDetectorConfig()
+    frame, truth = tabletop_frame(seed)
+    cloud = PointCloud.from_numpy(frame, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    t0 = time.perf_counter()
+    det, _ = detect_table(cloud, gen, cfg)
+    print(check_detection(det, truth, f"detect_table on a {N_TABLE}-point frame (first call "
+                                      f"{1e3 * (time.perf_counter() - t0):.2f} ms)"), flush=True)
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        det, _ = detect_table(cloud, gen, cfg)
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+    print(check_detection(det, truth, "detect_table, a later draw"))
+    print(f"detect_table {N_TABLE} points, down_capacity {cfg.down_capacity}, {cfg.sac_hypotheses} hypotheses: "
+          f"{statistics.median(walls):.2f} ms warm wall per call (turns {[round(w, 2) for w in walls]}, host clock "
+          f"ending in a sync) [{smi}]", flush=True)
+
+    box_args = ["--box", *(str(v) for v in TABLE_BOX)]
+    with tempfile.TemporaryDirectory() as td:
+        paths, truths = [], []
+        for k in range(TABLE_FRAMES):
+            xyz, tr = tabletop_frame(seed + k, (k * TABLE_SHIFT[0], k * TABLE_SHIFT[1]))
+            paths.append(f"{td}/frame{k}.pcd")
+            save_pcd(paths[-1], {"xyz": xyz})
+            truths.append(tr)
+        ckpt = f"{td}/memory.npz"
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = table_pipeline.main(paths + box_args + ["--checkpoint", ckpt, "--json", "--device", "cuda"])
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t0
+        belief = json.loads(buf.getvalue())
+        mem = TableMemory.restore(ckpt, device=dev)
+        print(f"table_pipeline main(): rc {rc}, {cli_s:.3f} s wall for {TABLE_FRAMES} frames of {N_TABLE} points "
+              f"(first call); belief state {belief}")
+        if rc != 0 or list(belief) != ["table_0"] or len(mem.tables) != 1:
+            fail(f"table_pipeline: rc {rc}, tables {list(belief)}")
+        insts = mem.tables[0].instances
+        named = []  # per frame: {placed object index: (name, type)}
+        for k, inst in enumerate(insts):
+            want = np.stack([c for _, c in truths[k]])
+            got = {}
+            for o in inst.objects:
+                d = np.linalg.norm(want - o.center, axis=1)
+                got[int(d.argmin())] = (o.name, o.object_type, float(d.min()))
+            named.append(got)
+            print(f"frame {k}: " + ", ".join(f"{truths[k][i][0]} {i}: {n} typed {t} (centre off {d:.3g} m)"
+                                           for i, (n, t, d) in sorted(got.items())))
+        kinds = {i: kind for i, (kind, _, _, _) in enumerate(TABLE_OBJECTS)}
+        ok = (len(insts) == TABLE_FRAMES and all(len(i.objects) == len(TABLE_OBJECTS) for i in insts)
+              and all(set(g) == set(kinds) for g in named)
+              and all(g[i][:2] == named[0][i][:2] and g[i][1] == kinds[i] and g[i][2] < 0.05
+                      for g in named for i in kinds))
+        if not ok:
+            fail("table_pipeline: not one table with 4 objects named alike in every frame and typed as placed")
+
+        # the stages of a warm frame, each ending in a sync: the CLI's body
+        stage_mem, stage_gen = TableMemory(device=dev), torch.Generator(device=dev).manual_seed(seed)
+        for turn in range(2):
+            t = {}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            c = load_pcd(paths[0], device=dev)
+            torch.cuda.synchronize()
+            t["load"] = time.perf_counter()
+            c = box_filter(c, TABLE_BOX[:3], TABLE_BOX[3:])
+            torch.cuda.synchronize()
+            t["box filter"] = time.perf_counter()
+            c, valid = remove_statistical_outliers(c, k=20, alpha=2.0, min_nr_pts=100)
+            valid = bool(valid)
+            t["denoise"] = time.perf_counter()
+            d, down = detect_table(c, stage_gen, cfg)
+            found = bool(d.found)
+            t["detect"] = time.perf_counter()
+            xyz = down.xyz.cpu().numpy()
+            masks, sizes = d.object_masks.cpu().numpy(), d.object_sizes.cpu().numpy()
+            stage_mem.update(xyz[d.table_inliers.cpu().numpy()][:, :2], float(d.table_min[2]),
+                             [xyz[m] for m, n in zip(masks, sizes) if n > 0], generator=stage_gen)
+            torch.cuda.synchronize()
+            t["memory update"] = time.perf_counter()
+            if not (valid and found):
+                fail(f"table_pipeline stages: denoise valid {valid}, table found {found}")
+        ms, prev = {}, t0
+        for name, tt in t.items():
+            ms[name], prev = 1e3 * (tt - prev), tt
+        print(f"table_pipeline stages, warm frame of {N_TABLE} points ({int(c.count())} after denoise): "
+              + ", ".join(f"{k} {v:.2f} ms" for k, v in ms.items())
+              + f"; total {sum(ms.values()):.2f} ms [{smi}]", flush=True)
+
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = clean_table.main([paths[0], "--device", "cuda"])
+        plan = json.loads(buf.getvalue())
+    want = np.stack([c for _, c in truths[0]])
+    grasp_xy = np.asarray([g["position"][:2] for g in plan["grasps"]]).reshape(-1, 2)
+    d = np.linalg.norm(grasp_xy[:, None, :] - want[None, :, :2], axis=-1)
+    print(f"clean_table main(): rc {rc}, {time.perf_counter() - t0:.3f} s wall (first call), table found "
+          f"{plan['table_found']}, {len(plan['grasps'])} grasps, xy off the placed objects "
+          f"{[float(f'{v:.3g}') for v in d.min(1)]} m")
+    if rc != 0 or not plan["table_found"] or len(plan["grasps"]) != len(TABLE_OBJECTS):
+        fail("clean_table: not 4 grasps")
+    if sorted(d.argmin(1).tolist()) != list(range(len(TABLE_OBJECTS))) or d.min(1).max() >= 0.05:
+        fail("clean_table: the grasps are not one above each placed object")
+
 
 def main(argv=None) -> int:
     import torch
 
-    argv = sys.argv[1:] if argv is None else argv
-    if argv not in ([], ["--profile"]):
-        fail(f"usage: chip_smoke.py [--profile], got {argv}")
+    ap = argparse.ArgumentParser(description="On-card smoke test of the PyTorch/CUDA port.")
+    ap.add_argument("--profile", action="store_true", help="profile the paths instead of checking them")
+    ap.add_argument("--seed", type=int, default=0, help="seed of phase 7's tabletop frames")
+    args = ap.parse_args(sys.argv[1:] if argv is None else argv)
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this check needs an NVIDIA GPU")
@@ -423,8 +654,8 @@ def main(argv=None) -> int:
             if ("ptxas info" in line and ("Used" in line or "Compiling" in line)) or "spill" in line:
                 print(f"    {line.strip()}")
 
-    if argv:
-        profile_paths(torch, dev, smi)
+    if args.profile:
+        profile_paths(torch, dev, smi, args.seed)
         return 0
 
     # -- phase 2: kernels vs plain on the card -------------------------------
@@ -814,6 +1045,9 @@ def main(argv=None) -> int:
         t2 = time.perf_counter()
         print(f"scan {k}: {1e3 * (t2 - t0):.2f} ms wall (normals k=12 {1e3 * (t1 - t0):.2f} ms, track "
               f"{1e3 * (t2 - t1):.2f} ms{', keyframe' if kf else ''}) [{smi}]")
+
+    # -- phase 7: the tabletop slice -------------------------------------------
+    phase_tabletop(torch, dev, smi, args.seed)
 
     kernels = []
     for name, r in results.items():

@@ -5,14 +5,21 @@ against it by parity tests (``tests/test_torch_*.py``).  Module names
 mirror the JAX package so each counterpart is easy to find.  It imports
 torch and numpy, never jax and never ``mapping_private_tpu``.
 
-Slice ported so far: scan-to-scan registration, the path of
-``python -m mapping_private_tpu_torch.apps.icp_register``:
+Slices ported so far: scan-to-scan registration and the mapping loop
+(``apps.icp_register``, ``apps.build_map``) and tabletop perception
+(``apps.table_pipeline``, ``apps.clean_table``):
 
 core          PointCloud (fixed capacity + mask), SE(3) maps, 6×6 solve
-io            PCD reader/writer (host-side numpy)
-ops           brute-force kNN, normals, the exact-argmin 1-NN kernel
-registration  point-to-plane ICP, pose-graph relaxation
-apps          the ``icp_register`` CLI
+io            PCD reader/writer, markers and PLY (host-side numpy)
+ops           kNN (brute force, grid hash), normals, the three 1-NN
+              kernels and their front door, voxel downsampling, filters,
+              clustering, hulls, MLS smoothing
+fit           batched-hypothesis RANSAC (plane, 2-D line and circle,
+              cylinder), oriented boxes
+registration  point-to-plane ICP (dense and tiled), scan-to-map
+              tracking, pose-graph relaxation
+models        the tabletop detector and the table memory
+apps          the four CLIs, each with ``--device`` (default cuda)
 csrc          hand-written CUDA C++ kernels for Hopper (sm_90a)
 """
 

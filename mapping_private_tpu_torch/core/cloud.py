@@ -9,7 +9,7 @@ two packages hold the same rows and parity holds row by row.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -36,6 +36,13 @@ class PointCloud:
     def capacity(self) -> int:
         return self.xyz.shape[0]
 
+    def count(self) -> torch.Tensor:
+        """Number of live points (a 0-d int32 tensor on the cloud's device)."""
+        return torch.sum(self.mask, dtype=torch.int32)
+
+    def has_channel(self, name: str) -> bool:
+        return name in self.channels
+
     def channel(self, name: str) -> torch.Tensor:
         return self.channels[name]
 
@@ -43,6 +50,30 @@ class PointCloud:
         ch = dict(self.channels)
         ch[name] = value
         return dataclasses.replace(self, channels=ch)
+
+    def with_xyz(self, xyz: torch.Tensor) -> "PointCloud":
+        return dataclasses.replace(self, xyz=xyz)
+
+    def _stacked(self, whole: str, parts: Tuple[str, str, str]) -> Optional[torch.Tensor]:
+        if whole in self.channels:
+            return self.channels[whole]
+        if all(k in self.channels for k in parts):
+            return torch.stack([self.channels[k] for k in parts], dim=-1)
+        return None
+
+    def normals(self) -> Optional[torch.Tensor]:
+        """(N,3) normals from a 'normal' channel or from nx/ny/nz channels
+        (the reference keeps normals as three scalar channels)."""
+        return self._stacked("normal", ("nx", "ny", "nz"))
+
+    def rgb(self) -> Optional[torch.Tensor]:
+        """(N,3) float colours in [0,255] from 'rgb' or r/g/b channels."""
+        return self._stacked("rgb", ("r", "g", "b"))
+
+    def select(self, keep: torch.Tensor) -> "PointCloud":
+        """Mask-and: restrict the live set to ``keep`` (N,) bool; no
+        compaction, the capacity stays."""
+        return dataclasses.replace(self, mask=self.mask & keep)
 
     def padded_xyz(self) -> torch.Tensor:
         """xyz with dead rows pushed to the sentinel (idempotent)."""

@@ -4,7 +4,8 @@ Counterpart of ``mapping_private_tpu/core/linalg.py``.  The 6×6 GN solve
 of ICP is written out element by element over tensors, so it stays on
 the device (no value is read back to the host) and keeps the JAX
 version's semantics: diagonal jitter and a clamped pivot instead of a
-failure on a singular system.
+failure on a singular system.  ``f32_of`` takes a scalar function of a
+threshold in float32, as the JAX package does.
 """
 from __future__ import annotations
 
@@ -51,3 +52,11 @@ def cholesky_solve_unrolled(
             s = s - L[k][i] * x[k]
         x[i] = s / L[i][i]
     return torch.stack(x, dim=-1)
+
+
+def f32_of(fn, x: float, device: torch.device | str) -> torch.Tensor:
+    """``fn`` (e.g. ``torch.cos``) of the Python number ``x`` taken in
+    float32 on ``device``: the JAX package computes angle thresholds such as
+    ``jnp.cos(eps_angle)`` in float32, and ``math.cos`` rounds otherwise,
+    which flips a normal that lies on the gate."""
+    return fn(torch.tensor(x, dtype=torch.float32, device=device))

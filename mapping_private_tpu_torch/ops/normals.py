@@ -13,7 +13,7 @@ from typing import Optional, Tuple
 import torch
 
 from mapping_private_tpu_torch.core.cloud import PointCloud
-from mapping_private_tpu_torch.ops.neighbors import knn_bruteforce
+from mapping_private_tpu_torch.ops.neighbors import build_grid_hash, knn_bruteforce, knn_grid
 
 
 def eigvals_sym3x3(A: torch.Tensor) -> torch.Tensor:
@@ -99,11 +99,20 @@ def estimate_normals(
     cloud: PointCloud,
     k: int = 20,
     viewpoint: Optional[torch.Tensor] = None,
+    use_grid: bool = False,
+    cell_size: float = 0.05,
 ) -> PointCloud:
     """Attach 'normal' (N,3) and 'curvature' (N,) channels from the k
-    nearest other points (brute force; the grid-hash path is not ported)."""
+    nearest other points: brute force, or with ``use_grid`` the grid hash
+    of cell ``cell_size`` (exact when the k-th neighbour lies within one
+    cell and no stencil cell overflows; for large clouds)."""
     xyz = cloud.padded_xyz()
-    idx, _ = knn_bruteforce(xyz, xyz, cloud.mask, k=k, exclude_self=True)
+    if use_grid:
+        grid = build_grid_hash(xyz, cloud.mask, cell_size)
+        self_idx = torch.arange(xyz.shape[0], dtype=torch.int32, device=xyz.device)
+        idx, _ = knn_grid(grid, xyz, k=k, self_idx=self_idx)
+    else:
+        idx, _ = knn_bruteforce(xyz, xyz, cloud.mask, k=k, exclude_self=True)
     valid = (idx >= 0) & cloud.mask[:, None]
     nrm, curv = normals_from_neighbors(xyz, idx, valid, viewpoint)
     return cloud.with_channel("normal", nrm).with_channel("curvature", curv)

@@ -120,3 +120,28 @@ def test_pointcloud_from_arrays_carries_dead_rows():
         tc.channel("curvature").numpy(), np.asarray(jc.channel("curvature")))
     assert tc.with_channel("x", tc.xyz[:, 0]).channels.keys() == {"curvature", "x"}
     assert tcloud.PAD_COORD == jcloud.PAD_COORD
+
+
+def test_pointcloud_accessors_match():
+    """count, has_channel, with_xyz, select and the stacked normals / rgb
+    (one channel, or three scalar channels) as the JAX package has them."""
+    rng = np.random.default_rng(4)
+    n = 150
+    chans = {"nx": rng.normal(size=n), "ny": rng.normal(size=n), "nz": rng.normal(size=n),
+             "rgb": rng.uniform(0, 255, (n, 3))}
+    jc = jcloud.PointCloud.from_numpy(rng.normal(size=(n, 3)).astype(np.float32), chans)
+    tc = tcloud.PointCloud.from_numpy(np.asarray(jc.xyz)[:n], chans, device="cpu")
+    keep = rng.uniform(size=jc.capacity) > 0.4
+    js, ts = jc.select(jnp.asarray(keep)), tc.select(torch.from_numpy(keep))
+    np.testing.assert_array_equal(ts.mask.numpy(), np.asarray(js.mask))
+    assert int(ts.count()) == int(js.count()) and ts.count().dtype == torch.int32
+    assert int(tc.count()) == n
+    for name in ("nx", "normal", "r"):
+        assert tc.has_channel(name) == jc.has_channel(name)
+    for a, b in ((ts.normals(), js.normals()), (ts.rgb(), js.rgb())):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    assert tc.with_channel("normal", tc.xyz).normals() is not None
+    assert tcloud.PointCloud.from_numpy(np.zeros((3, 3)), device="cpu").normals() is None
+    moved = ts.with_xyz(ts.xyz + 1.0)
+    np.testing.assert_array_equal(moved.xyz.numpy(), np.asarray(js.with_xyz(js.xyz + 1.0).xyz))
+    assert moved.channels.keys() == ts.channels.keys()

@@ -14,6 +14,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax_ref import jit_call
 from test_icp import _bumpy_surface
 
 from mapping_private_tpu.core.cloud import PointCloud as JCloud
@@ -114,3 +115,23 @@ def test_pairwise_sq_dists_matches():
     want = np.asarray(jnb.pairwise_sq_dists(jnp.asarray(a), jnp.asarray(b)))
     got = tnb.pairwise_sq_dists(torch.from_numpy(a), torch.from_numpy(b)).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+def test_estimate_normals_grid_matches():
+    """The grid-hash path (``use_grid``): the same stencil candidates on
+    both sides, ranked by direct differences, so the neighbour sets agree
+    but for near ties; normals compared as for brute force."""
+    jc, tc = _clouds(n=700, seed=3, dead_every=7)
+    kw = dict(k=12, use_grid=True, cell_size=0.25)
+    jn = jit_call(jnorm.estimate_normals, jc, viewpoint=jnp.asarray(VIEW), **kw)
+    tn = tnorm.estimate_normals(tc, viewpoint=torch.from_numpy(VIEW), **kw)
+    xj, xt = jc.padded_xyz(), tc.padded_xyz()
+    self_j = jnp.arange(jc.capacity, dtype=jnp.int32)
+    ij = np.asarray(jit_call(lambda x, m: jnb.knn_grid(jnb.build_grid_hash(x, m, 0.25), x, k=12,
+                                                       self_idx=self_j)[0], xj, jc.mask))
+    it = tnb.knn_grid(tnb.build_grid_hash(xt, tc.mask, 0.25), xt, k=12,
+                      self_idx=torch.arange(tc.capacity, dtype=torch.int32))[0].numpy()
+    live = np.asarray(jc.mask)
+    same = np.array([set(a) == set(b) for a, b in zip(ij, it)]) & live
+    assert same.sum() >= 0.995 * live.sum()
+    _check_normals(jn, tn, same & ((ij >= 0).sum(1) >= 3))
