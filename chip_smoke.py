@@ -61,7 +61,14 @@ Phases (any failure exits non-zero before the result line):
    Then ``icp_point_to_plane_tiled`` on that pair moved by a known small
    twist (with the surface's analytic normals), 6 sweeps, tile 0.1, 128
    per cell: transform within 0.01 of the
-   truth, more than 0.9 N correspondences, RMSE falling.
+   truth, more than 0.9 N correspondences, RMSE falling.  Then the dense
+   lattice: ``nn_1nn(engine="lattice")`` against the compact engine (d² bit
+   for bit, indices equal where untied; both wall times and the lattice
+   call's peak memory), and two more ICP modes held against that compact
+   run (transform within 1e-5, the same correspondence count; wall times):
+   ``icp_point_to_plane(nn_backend="tiled", max_tiles=0)`` on the lattice
+   ``size_tiled_lattice`` sizes, and ``icp_point_to_plane_tiled(...,
+   rebucket_sweeps=2)``.
 6. The mapping loop: 12 synthetic 20,000-point scans of the world surface
    seen from a known trajectory, written as PCD files and mapped with
    ``mapping_private_tpu_torch.apps.build_map.main([... "--json",
@@ -85,13 +92,37 @@ Phases (any failure exits non-zero before the result line):
    then the wall time of each of its stages on a warm frame (load, box
    filter, denoise, detect, memory update).  The ``clean_table`` CLI on one
    frame: 4 grasps, each above a placed object.
+8. The structural scenes, synthetic from ``--seed``, each with its wall
+   time.  A 400,000-point scan of a 6 x 4 m room (floor, a ceiling at 2.8
+   m, four walls, a 1.2 x 0.8 m table top at 0.75 m and a 0.5 x 0.4 x 1.8
+   m cabinet against a wall; 2 mm noise; points in proportion to area)
+   written as PCD and run through ``python -m
+   mapping_private_tpu_torch.apps.room_segment`` with ``--out-labeled``
+   and ``--out-filtered``: floor and ceiling counts equal to the points
+   below 0.1 m and above 2.7 m, 4 walls each within 2 degrees and 0.02 m,
+   the filtered cloud keeps the table top and the cabinet's front.  The
+   room voxel-downsampled (0.042 m, under 65,536 rows), normals (k=12),
+   ``fit_orientation_ransac`` (within 2 degrees of the room's axes) and
+   ``region_grow`` (radius 0.05, 10 degree normal gate; the 6 largest
+   regions 6 surfaces, each at least 95% on one).
+   ``layered_reconstruction`` of a 100,000-point wall and cylinder (the box
+   and the cylinder found, as tests/test_layered.py asserts).
+   ``detect_table_sr`` and ``split_table_detection`` on a 176 x 144
+   organized frame (tests/test_table_detector_sr.py's box on a table):
+   the table found within 0.02 m of its height, the box as one object.
+   ``triangulate_depth_image`` on that frame and a 640 x 480 one (no
+   valid edge beyond 0.05 m).  ``fit_rotational_ransac`` on a 20,000-point
+   vase.  ``apps.cloud_ops`` transform (and back, within 1e-5), crop (the
+   band's rows exactly), denoise (the 1,000 injected outliers dropped),
+   project and concat (rows add up) on phase 7's frame.
 
 ``python3 chip_smoke.py --profile`` builds the kernels and then, instead
-of phases 2-7, profiles with torch.profiler one warm pair of phase 3
+of phases 2-8, profiles with torch.profiler one warm pair of phase 3
 (normals + 20 ICP sweeps), one warm tracker step of phase 6, phase 5's
-tiled ICP call, and phase 7's denoise of a frame and ``detect_table``
-call (device time by kernel, launches, the device's idle share); it
-prints no result line.  ``--seed N`` (default 0) makes phase 7's frames.
+tiled ICP call, phase 7's denoise of a frame and ``detect_table`` call,
+and phase 8's ``segment_room`` and ``detect_table_sr`` calls (device
+time by kernel, launches, the device's idle share); it prints no result
+line.  ``--seed N`` (default 0) makes the scenes of phases 7 and 8.
 
 Every launch count is set to 0 just before a path is driven and read just
 after.  Prints, before the last line, one JSON line {"kernels": [...]}
@@ -105,6 +136,7 @@ import argparse
 import contextlib
 import io
 import json
+import pathlib
 import statistics
 import subprocess
 import sys
@@ -112,6 +144,8 @@ import tempfile
 import time
 
 import numpy as np
+
+REPO_ROOT = pathlib.Path(__file__).resolve().parent
 
 N_POINTS = 20_000  # bench.py's scan size; the CLIs match the full cloud
 N_SCANS = 4  # registration chain (phase 3)
@@ -138,6 +172,21 @@ TABLE_OBJECTS = (("box", 0.30, 0.15, (0.12, 0.08, 0.18)),
                  ("cylinder", 0.25, -0.20, (0.045, 0.24)),
                  ("cylinder", -0.25, -0.18, (0.05, 0.20)))
 TABLE_SHIFT = (0.01, -0.005)  # frame k of the pipeline is moved by k times this
+
+N_ROOM = 400_000  # a room scan (phase 8)
+ROOM = (6.0, 4.0, 2.8)  # x, y extent and ceiling height; walls at x = 0, 6 and y = 0, 4
+ROOM_NOISE = 0.002
+ROOM_TABLE = ((2.4, 3.6), (1.6, 2.4), 0.75)  # the 1.2 x 0.8 m table top: x range, y range, height
+ROOM_CABINET = ((1.0, 1.5), (3.6, 4.0), 1.8)  # 0.5 x 0.4 x 1.8 m, its back against the wall y = 4
+ROOM_VOXEL = 0.042  # room downsample for orientation and region growing (< 65,536 voxels)
+ROOM_DOWN_CAP = 65_536
+N_LAYERED = 100_000  # tests/test_layered.py's wall and cylinder, more points
+N_VASE = 20_000  # tests/test_fit_models.py's vase, more points
+SR_SHAPE = (144, 176)  # a SwissRanger frame, rows x columns (table_object_detector_sr.cpp:72-73)
+VGA_SHAPE = (480, 640)
+SR_VIEW = (-0.7, 0.0, 1.7)  # tests/test_table_detector_sr.py's oblique viewpoint
+SR_BOX = ((0.05, -0.20, 0.75), (0.45, 0.20, 0.95))  # the 20 cm box on the table at z = 0.75
+N_OUTLIERS = 1_000  # injected into phase 7's frame for the cloud_ops denoise
 
 # H100 SXM: SMs x FP32 lanes; bytes/s of HBM3 (NVIDIA's data sheet)
 SM_LANES = 132 * 128
@@ -349,6 +398,125 @@ def tabletop_frame(seed: int, shift=(0.0, 0.0)):
     return xyz[rng.permutation(N_TABLE)].astype(np.float32), truth
 
 
+def room_surfaces():
+    """The room of phase 8 as named lists of axis-aligned rectangles
+    (fixed axis, its value, (axis, lo, hi), (axis, lo, hi)): floor,
+    ceiling, four walls, the table top and the cabinet's front, sides and
+    top.  The floor under the cabinet and the wall behind it are hidden."""
+    X, Y, Z = ROOM
+    (tx0, tx1), (ty0, ty1), tz = ROOM_TABLE
+    (cx0, cx1), (cy0, cy1), cz = ROOM_CABINET
+    return {
+        "floor": [(2, 0.0, (0, 0, X), (1, 0, cy0)), (2, 0.0, (0, 0, cx0), (1, cy0, Y)),
+                  (2, 0.0, (0, cx1, X), (1, cy0, Y))],
+        "ceiling": [(2, Z, (0, 0, X), (1, 0, Y))],
+        "wall x=0": [(0, 0.0, (1, 0, Y), (2, 0, Z))],
+        "wall x=6": [(0, X, (1, 0, Y), (2, 0, Z))],
+        "wall y=0": [(1, 0.0, (0, 0, X), (2, 0, Z))],
+        "wall y=4": [(1, Y, (0, 0, cx0), (2, 0, Z)), (1, Y, (0, cx1, X), (2, 0, Z)),
+                     (1, Y, (0, cx0, cx1), (2, cz, Z))],
+        "table top": [(2, tz, (0, tx0, tx1), (1, ty0, ty1))],
+        "cabinet front": [(1, cy0, (0, cx0, cx1), (2, 0, cz))],
+        "cabinet side x=1.0": [(0, cx0, (1, cy0, cy1), (2, 0, cz))],
+        "cabinet side x=1.5": [(0, cx1, (1, cy0, cy1), (2, 0, cz))],
+        "cabinet top": [(2, cz, (0, cx0, cx1), (1, cy0, cy1))],
+    }
+
+
+def _rect_area(r):
+    return (r[2][2] - r[2][1]) * (r[3][2] - r[3][1])
+
+
+def room_scan(seed: int):
+    """N_ROOM points on the room's surfaces, each surface's share in
+    proportion to its area, ROOM_NOISE along its normal.  Returns (xyz
+    (N_ROOM, 3) float32 shuffled, surface index per point)."""
+    rng = np.random.default_rng(seed)
+    rects = [(i, r) for i, rs in enumerate(room_surfaces().values()) for r in rs]
+    areas = np.array([_rect_area(r) for _, r in rects])
+    counts = np.floor(N_ROOM * areas / areas.sum()).astype(int)
+    counts[0] += N_ROOM - counts.sum()
+    parts, labels = [], []
+    for (i, (ax, v, (ua, u0, u1), (va, v0, v1))), n in zip(rects, counts):
+        p = np.empty((n, 3))
+        p[:, ax] = v + rng.normal(0, ROOM_NOISE, n)
+        p[:, ua] = rng.uniform(u0, u1, n)
+        p[:, va] = rng.uniform(v0, v1, n)
+        parts.append(p)
+        labels.append(np.full(n, i))
+    perm = rng.permutation(N_ROOM)
+    return np.concatenate(parts)[perm].astype(np.float32), np.concatenate(labels)[perm]
+
+
+def room_surface_of(xyz: np.ndarray) -> np.ndarray:
+    """The surface index of the room rectangle nearest each point (an
+    oracle of the scene, independent of the code under test)."""
+    best = np.full(len(xyz), np.inf)
+    out = np.zeros(len(xyz), int)
+    for i, rs in enumerate(room_surfaces().values()):
+        for ax, v, (ua, u0, u1), (va, v0, v1) in rs:
+            du = np.maximum(0, np.maximum(u0 - xyz[:, ua], xyz[:, ua] - u1))
+            dv = np.maximum(0, np.maximum(v0 - xyz[:, va], xyz[:, va] - v1))
+            d = (xyz[:, ax] - v) ** 2 + du**2 + dv**2
+            out = np.where(d < best, i, out)
+            best = np.minimum(best, d)
+    return out
+
+
+def sr_frame(shape, seed: int = 0):
+    """tests/test_table_detector_sr.py's organized scene at ``shape`` (rows,
+    columns): pinhole rays from SR_VIEW through a grid, the nearest hit of
+    the axis-aligned box SR_BOX or the table plane, 0.5 mm noise.  Returns
+    (points (H, W, 3) float32, in_box (H, W))."""
+    h, w = shape
+    vp = np.asarray(SR_VIEW)
+    lo, hi = (np.asarray(c) for c in SR_BOX)
+    ys, xs = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+    look = np.array([0.25, 0.0, TABLE_Z]) - vp
+    look /= np.linalg.norm(look)
+    right = np.cross(look, [0.0, 0.0, 1.0])
+    right /= np.linalg.norm(right)
+    up = np.cross(right, look)
+    d = look + ((xs - w / 2) / (w * 1.6))[..., None] * right + ((ys - h / 2) / (h * 1.6))[..., None] * up
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    t_tab = (TABLE_Z - vp[2]) / d[..., 2]
+    with np.errstate(divide="ignore", invalid="ignore"):
+        t1, t2 = (lo - vp) / d, (hi - vp) / d
+    tmin, tmax = np.minimum(t1, t2).max(-1), np.maximum(t1, t2).min(-1)
+    t_box = np.where((tmax >= tmin) & (tmin > 0), tmin, np.inf)
+    in_box = t_box < t_tab
+    pts = vp + np.where(in_box, t_box, t_tab)[..., None] * d
+    pts += np.random.default_rng(seed).normal(0, 5e-4, pts.shape)
+    return pts.astype(np.float32), in_box
+
+
+def layered_scene(seed: int) -> np.ndarray:
+    """tests/test_layered.py's scene at N_LAYERED points: a 1.2 m wall at
+    y = 0.4 (z 0..0.6) and an r = 0.1 cylinder at (2.0, 1.5) (z 0..0.5),
+    2 mm xy noise."""
+    rng = np.random.default_rng(seed)
+    n_wall = N_LAYERED * 1800 // 3300
+    n_cyl = N_LAYERED - n_wall
+    wall = np.column_stack([rng.uniform(0, 1.2, n_wall), np.full(n_wall, 0.4), rng.uniform(0, 0.6, n_wall)])
+    ang = rng.uniform(0, 2 * np.pi, n_cyl)
+    cyl = np.column_stack([2.0 + 0.1 * np.cos(ang), 1.5 + 0.1 * np.sin(ang), rng.uniform(0, 0.5, n_cyl)])
+    pts = np.vstack([wall, cyl]).astype(np.float32)
+    pts[:, :2] += rng.normal(0, 0.002, (len(pts), 2))
+    return pts
+
+
+def vase(seed: int):
+    """tests/test_fit_models.py's vase at N_VASE points: r(z) = 0.08 +
+    0.03 sin 6z about the z axis, with its exact normals."""
+    rng = np.random.default_rng(seed)
+    z = rng.uniform(-0.2, 0.2, N_VASE)
+    r = 0.08 + 0.03 * np.sin(6 * z)
+    ang = rng.uniform(0, 2 * np.pi, N_VASE)
+    pts = np.column_stack([r * np.cos(ang), r * np.sin(ang), z]).astype(np.float32)
+    nr = np.column_stack([np.cos(ang), np.sin(ang), -0.18 * np.cos(6 * z)])
+    return pts, (nr / np.linalg.norm(nr, axis=1, keepdims=True)).astype(np.float32)
+
+
 def bits(a: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(a).view(np.int32)
 
@@ -392,8 +560,9 @@ def profile_call(torch, name: str, fn, smi: str):
 def profile_paths(torch, dev, smi: str, seed: int):
     """--profile: where the time goes in a pair of phase 3 (scan 1 onto scan
     0), in a tracker step of phase 6 (scan 4 against the map of scans 0-3),
-    in phase 5's tiled ICP call, and in phase 7's denoise of a box-filtered
-    frame and its detect_table call."""
+    in phase 5's tiled ICP call, in phase 7's denoise of a box-filtered
+    frame and its detect_table call, and in phase 8's segment_room of the
+    room scan and detect_table_sr of the SwissRanger frame."""
     from mapping_private_tpu_torch.core.cloud import PointCloud
     from mapping_private_tpu_torch.core.se3 import se3_exp
     from mapping_private_tpu_torch.ops.normals import estimate_normals
@@ -444,6 +613,18 @@ def profile_paths(torch, dev, smi: str, seed: int):
     gen = torch.Generator(device=dev).manual_seed(seed)
     profile_call(torch, f"detect_table at the default config, that frame denoised ({int(cloud.count())} points)",
                  lambda: detect_table(cloud, gen, TableDetectorConfig()), smi)
+
+    from mapping_private_tpu_torch.models.room_segmentation import segment_room
+    from mapping_private_tpu_torch.models.table_detector_sr import detect_table_sr
+
+    room = PointCloud.from_numpy(room_scan(seed)[0], device=dev)
+    profile_call(torch, f"segment_room at the default config, a {N_ROOM}-point room scan",
+                 lambda: segment_room(room, gen), smi)
+    pts = torch.from_numpy(sr_frame(SR_SHAPE, seed)[0]).to(dev)
+    valid = torch.ones(SR_SHAPE, dtype=torch.bool, device=dev)
+    vp = torch.tensor(SR_VIEW, device=dev)
+    profile_call(torch, f"detect_table_sr at the default config, a {SR_SHAPE[1]} x {SR_SHAPE[0]} frame",
+                 lambda: detect_table_sr(pts, valid, vp, gen), smi)
 
 
 def check_detection(det, truth, label: str):
@@ -590,12 +771,291 @@ def phase_tabletop(torch, dev, smi: str, seed: int):
         fail("clean_table: the grasps are not one above each placed object")
 
 
+def _wall(fn, torch, turns: int = 3):
+    """(median warm wall ms over ``turns`` calls ending in a sync, last result)."""
+    walls, out = [], None
+    for _ in range(turns):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(walls), out
+
+
+def phase_room(torch, dev, smi: str, seed: int, td: str):
+    """Phase 8, the room: the room_segment CLI as a user runs it, then the
+    room downsampled for fit_orientation_ransac and region_grow."""
+    import math
+
+    from mapping_private_tpu_torch.core.cloud import PointCloud
+    from mapping_private_tpu_torch.fit.orientation import fit_orientation_ransac
+    from mapping_private_tpu_torch.io.pcd import load_pcd_arrays, save_pcd
+    from mapping_private_tpu_torch.ops.normals import estimate_normals
+    from mapping_private_tpu_torch.ops.region_growing import region_grow
+    from mapping_private_tpu_torch.ops.voxel import voxel_downsample_dense
+
+    names = list(room_surfaces())
+    xyz, label = room_scan(seed)
+    path, lab_path, filt_path = f"{td}/room.pcd", f"{td}/room_labeled.pcd", f"{td}/room_filtered.pcd"
+    save_pcd(path, {"xyz": xyz})
+    a = load_pcd_arrays(path)
+    z = a["z"]
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "mapping_private_tpu_torch.apps.room_segment", path,
+         "--out-labeled", lab_path, "--out-filtered", filt_path],
+        cwd=REPO_ROOT, capture_output=True, text=True, timeout=600)
+    cli_s = time.perf_counter() - t0
+    if out.returncode != 0:
+        fail(f"room_segment: rc {out.returncode}: {out.stderr[-2000:]}")
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    counts, planes = res["counts"], np.asarray(res["wall_planes"], np.float64).reshape(-1, 4)
+    want = {"floor": int((z < 0.1).sum()), "ceiling": int((z > 2.7).sum())}
+    # the four walls as (unit normal, offset): n·p + d = 0
+    walls = {"wall x=0": ((1, 0, 0), 0.0), "wall x=6": ((1, 0, 0), -ROOM[0]),
+             "wall y=0": ((0, 1, 0), 0.0), "wall y=4": ((0, 1, 0), -ROOM[1])}
+    matched = {}
+    for pl in planes:
+        best = None
+        for wname, (n_true, d_true) in walls.items():
+            sgn = 1.0 if pl[:3] @ n_true >= 0 else -1.0
+            ang = math.degrees(math.acos(min(1.0, abs(float(pl[:3] @ n_true)))))
+            off = abs(sgn * pl[3] - d_true)
+            if best is None or (ang, off) < best[1:]:
+                best = (wname, ang, off)
+        matched[best[0]] = best[1:]
+    filt = load_pcd_arrays(filt_path)
+    fx = np.stack([filt["x"], filt["y"], filt["z"]], 1)
+    (tx0, tx1), (ty0, ty1), tz = ROOM_TABLE
+    (cx0, cx1), (cy0, cy1), cz = ROOM_CABINET
+
+    def on_table(p):
+        return (np.abs(p[:, 2] - tz) < 0.01) & (p[:, 0] > tx0) & (p[:, 0] < tx1) & (p[:, 1] > ty0) & (p[:, 1] < ty1)
+
+    def on_front(p):
+        return (np.abs(p[:, 1] - cy0) < 0.01) & (p[:, 0] > cx0) & (p[:, 0] < cx1) & (p[:, 2] > 0.1) & (p[:, 2] < cz)
+
+    keep_table = on_table(fx).sum() / max(on_table(xyz).sum(), 1)
+    keep_front = on_front(fx).sum() / max(on_front(xyz).sum(), 1)
+    print(f"room_segment CLI (python -m, {N_ROOM} points, a {ROOM[0]:g} x {ROOM[1]:g} m room): {cli_s:.2f} s wall "
+          f"(process start, load, segment, wall_filter, writes); counts {counts} (floor/ceiling truth {want}); "
+          f"walls {{name: (normal error deg, offset error m)}} "
+          f"{ {k: (round(float(v[0]), 3), round(float(v[1]), 4)) for k, v in matched.items()} }; the filtered cloud "
+          f"({len(fx)} points) keeps {keep_table:.4f} of the table top and {keep_front:.4f} of the cabinet front",
+          flush=True)
+    if (counts["floor"], counts["ceiling"]) != (want["floor"], want["ceiling"]):
+        fail("room_segment: floor or ceiling count off the truth")
+    if len(planes) != 4 or len(matched) != 4 or max(max(v[0] for v in matched.values()) / 2.0,
+                                                     max(v[1] for v in matched.values()) / 0.02) >= 1:
+        fail("room_segment: not the 4 walls within 2 degrees and 0.02 m")
+    if keep_table < 0.99 or keep_front < 0.99:
+        fail("room_segment: the wall filter dropped the table or the cabinet front")
+    lab = load_pcd_arrays(lab_path)["segment"]
+    if len(lab) != N_ROOM or int((lab >= 3).sum()) != counts["walls"]:
+        fail("room_segment: the labeled PCD disagrees with the counts")
+
+    # orientation and region growing on the downsampled room
+    cloud = PointCloud.from_numpy(xyz, device=dev)
+    t0 = time.perf_counter()
+    # a lattice offset by half a voxel, so the planes x, y, z = 0 run
+    # through cell middles, not along cell faces
+    origin = (-ROOM_VOXEL / 2,) * 3
+    dims = tuple(int(np.ceil((e + ROOM_VOXEL) / ROOM_VOXEL)) for e in ROOM)
+    down = voxel_downsample_dense(cloud, ROOM_VOXEL, origin, dims, ROOM_DOWN_CAP)
+    n_down = int(down.count())
+    if n_down >= ROOM_DOWN_CAP:
+        fail(f"room downsample spilled: {n_down} voxels")
+    down = estimate_normals(down, k=12)
+    nrm = down.channel("normal")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    direction, inl = fit_orientation_ransac(nrm, down.mask, gen)
+    d = direction.cpu().numpy()
+    ang = math.degrees(math.atan2(float(d[1]), float(d[0]))) % 90.0
+    ang_err = min(ang, 90.0 - ang)
+    labels = region_grow(down.padded_xyz(), down.mask, 0.05, normals=nrm, angle_threshold=math.radians(10))
+    labels = labels.cpu().numpy()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    live = down.mask.cpu().numpy()
+    truth = room_surface_of(down.xyz.cpu().numpy()[live])
+    regions, sizes = np.unique(labels[live], return_counts=True)
+    top = regions[np.argsort(-sizes, kind="stable")[:6]]
+    purity = []
+    for r in top:
+        t = truth[labels[live] == r]
+        k = np.bincount(t, minlength=len(names))
+        purity.append((names[int(k.argmax())], int(k.sum()), float(k.max() / k.sum())))
+    print(f"room downsampled at {ROOM_VOXEL} m to {n_down} rows, normals k=12, fit_orientation_ransac and "
+          f"region_grow (radius 0.05, 10 degree gate): {1e3 * wall_s:.2f} ms wall (first call); direction "
+          f"{np.round(d, 5).tolist()} ({ang_err:.3f} deg off the room's axes, bound 2), {int(inl.sum())} inliers; "
+          f"{len(regions)} regions, the 6 largest (surface, size, share on it): {purity}", flush=True)
+    if ang_err >= 2.0:
+        fail("fit_orientation_ransac: the direction is not the room's")
+    if len(purity) < 6 or min(p[2] for p in purity) < 0.95 or len({p[0] for p in purity}) != 6:
+        fail("region_grow: the 6 largest regions are not 6 surfaces, each 95% on one")
+    return cloud
+
+
+def phase_structural(torch, dev, smi: str, seed: int):
+    """Phase 8: the structural scenes (room, layered reconstruction, the
+    SwissRanger frame, triangulation, the rotational fit, cloud_ops)."""
+    from mapping_private_tpu_torch.core.cloud import PointCloud
+    from mapping_private_tpu_torch.fit.rotational import fit_rotational_ransac, rotational_distance
+    from mapping_private_tpu_torch.models.layered_reconstruction import LayeredConfig, layered_reconstruction
+    from mapping_private_tpu_torch.models.table_detector_sr import detect_table_sr, split_table_detection
+    from mapping_private_tpu_torch.ops.triangulation import compact_mesh, triangulate_depth_image
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory() as td:
+        phase_room(torch, dev, smi, seed, td)
+
+        # layered reconstruction: the wall becomes a box, the cylinder a cylinder
+        cloud = PointCloud.from_numpy(layered_scene(seed), device=dev)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        t0 = time.perf_counter()
+        solids = layered_reconstruction(cloud, gen, LayeredConfig(layer_height=0.1, min_inliers=40))
+        lay_ms = 1e3 * (time.perf_counter() - t0)
+        cyl = next((s for s in solids if s.kind == "cylinder"), None)
+        box = next((s for s in solids if s.kind == "box"), None)
+        print(f"layered_reconstruction {N_LAYERED} points: {lay_ms:.2f} ms wall (first call); solids "
+              f"{[(s.kind, s.layers) for s in solids]}; cylinder {cyl and cyl.params}; box {box and box.params}",
+              flush=True)
+        if cyl is None or box is None:
+            fail("layered_reconstruction: no box and cylinder")
+        e0, e1 = np.asarray(box.params["endpoints"])
+        if (np.abs(np.asarray(cyl.params["center"]) - [2.0, 1.5]).max() >= 0.02 or abs(cyl.params["radius"] - 0.1) >= 0.01
+                or cyl.z_hi - cyl.z_lo < 0.3 or np.linalg.norm(e1 - e0) <= 0.8):
+            fail("layered_reconstruction: the solids are off")
+
+        # the SwissRanger frame: detect_table_sr and split_table_detection
+        pts_np, in_box = sr_frame(SR_SHAPE, seed)
+        pts = torch.from_numpy(pts_np).to(dev)
+        valid = torch.ones(SR_SHAPE, dtype=torch.bool, device=dev)
+        vp = torch.tensor(SR_VIEW, device=dev)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        sr_ms, det = _wall(lambda: detect_table_sr(pts, valid, vp, gen), torch)
+        plane = det.plane.cpu().numpy().astype(np.float64)
+        z0 = -plane[3] / plane[2] if plane[2] else np.inf
+        sizes = det.object_sizes.cpu().numpy()
+        masks = det.object_masks.cpu().numpy()
+        poly, objs = split_table_detection(det, pts)
+        one = masks[np.argmax(sizes)].reshape(SR_SHAPE)
+        print(f"detect_table_sr {SR_SHAPE[1]} x {SR_SHAPE[0]} frame: {sr_ms:.2f} ms warm wall per call [{smi}]; "
+              f"found {bool(det.found)}, plane height {z0:.4f} (|dz| bound 0.02), objects of sizes "
+              f"{sizes[sizes > 0].tolist()} ({int(one[in_box].sum())} of the largest on box pixels); "
+              f"split: polygon of {len(poly)} vertices, {len(objs)} object clouds", flush=True)
+        if not bool(det.found) or abs(z0 - TABLE_Z) >= 0.02 or (sizes > 0).sum() != 1:
+            fail("detect_table_sr: not the table and one object")
+        if one[in_box].sum() != one.sum() or len(objs) != 1 or len(poly) < 3:
+            fail("detect_table_sr: the object is not the box alone")
+
+        # triangulation of that frame and of a VGA frame of the same scene
+        for shape in (SR_SHAPE, VGA_SHAPE):
+            p_np, _ = sr_frame(shape, seed)
+            p = torch.from_numpy(p_np).to(dev)
+            ok_img = torch.ones(shape, dtype=torch.bool, device=dev)
+            tri_ms, (tris, ok) = _wall(lambda: triangulate_depth_image(p, ok_img), torch)
+            tris, ok = tris.cpu().numpy(), ok.cpu().numpy()
+            flat = p_np.reshape(-1, 3)
+            vt = tris[ok]
+            longest = float(np.linalg.norm(flat[vt] - flat[np.roll(vt, 1, axis=1)], axis=-1).max()) if len(vt) else 0.0
+            verts, faces = compact_mesh(p_np, tris, ok)
+            print(f"triangulate_depth_image {shape[1]} x {shape[0]}: {tri_ms:.2f} ms warm wall [{smi}]; "
+                  f"{int(ok.sum())} of {len(ok)} triangles valid, longest valid edge {longest:.4f} m (bound 0.05); "
+                  f"compact mesh {len(verts)} vertices, {len(faces)} faces", flush=True)
+            if not 0.9 < ok.mean() < 1.0 or longest > 0.05 or len(faces) != ok.sum():
+                fail("triangulate_depth_image: the mesh is off")
+
+        # the rotational fit on a vase
+        v_np, vn_np = vase(seed)
+        vx, vn = torch.from_numpy(v_np).to(dev), torch.from_numpy(vn_np).to(dev)
+        ones = torch.ones(N_VASE, dtype=torch.bool, device=dev)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        rot_ms, (surf, inl) = _wall(lambda: fit_rotational_ransac(vx, vn, ones, gen, threshold=0.01), torch)
+        frac = float(inl.float().mean())
+        ax = surf.axis.cpu().numpy()
+        med = float(rotational_distance(surf, vx).median())
+        print(f"fit_rotational_ransac {N_VASE}-point vase: {rot_ms:.2f} ms warm wall [{smi}]; inliers {frac:.4f} "
+              f"(bound 0.7), axis {np.round(ax, 5).tolist()}, median residual {med:.2e} m (bound 0.01)", flush=True)
+        if frac <= 0.7 or abs(ax[2]) <= 0.95 or med >= 0.01:
+            fail("fit_rotational_ransac: the vase is not recovered")
+
+        phase_cloud_ops(seed, td)
+    print(f"phase 8: {time.perf_counter() - t_phase:.2f} s wall", flush=True)
+
+
+def phase_cloud_ops(seed: int, td: str):
+    """cloud_ops' five subcommands on phase 7's frame with N_OUTLIERS
+    points injected above the table."""
+    from mapping_private_tpu_torch.apps import cloud_ops
+    from mapping_private_tpu_torch.io.pcd import load_pcd_arrays, save_pcd
+
+    frame, _ = tabletop_frame(seed)
+    rng = np.random.default_rng(seed + 1)
+    outl = rng.uniform([-1.3, -1.4, 1.2], [1.3, 1.4, 2.6], (N_OUTLIERS, 3)).astype(np.float32)
+    xyz = np.concatenate([frame, outl])
+    src = f"{td}/frame.pcd"
+    save_pcd(src, {"xyz": xyz})
+    orig = load_pcd_arrays(src)
+    orig = np.stack([orig["x"], orig["y"], orig["z"]], 1)
+
+    def run(args):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cloud_ops.main(args)
+        if rc != 0:
+            fail(f"cloud_ops {args[0]}: rc {rc}")
+        return 1e3 * (time.perf_counter() - t0)
+
+    def read(path):
+        a = load_pcd_arrays(path)
+        return np.stack([a["x"], a["y"], a["z"]], 1)
+
+    yaw, t = 0.7, np.array([0.3, -0.1, 0.2])
+    t_inv = -(cloud_ops._euler_matrix(0, 0, -yaw) @ t)
+    ms = {}
+    ms["transform"] = run(["transform", "--yaw", repr(yaw), *sum(([f"--{a}", repr(float(v))] for a, v in zip("xyz", t)), []),
+                           "--out-dir", f"{td}/tf", src])
+    ms["transform back"] = run(["transform", "--yaw", repr(-yaw),
+                                *sum(([f"--{a}", repr(float(v))] for a, v in zip("xyz", t_inv)), []),
+                                "--out-dir", f"{td}/back", f"{td}/tf/frame_tf.pcd"])
+    back_err = float(np.abs(read(f"{td}/back/frame_tf_tf.pcd") - orig).max())
+    ms["crop"] = run(["crop", "--axis", "z", "--min", "0.7", "--max", "0.8", "--out-dir", f"{td}/crop", src])
+    cropped = read(f"{td}/crop/frame_crop_z.pcd")
+    band = orig[(orig[:, 2] >= np.float32(0.7)) & (orig[:, 2] <= np.float32(0.8))]
+    ms["denoise"] = run(["denoise", "--out-dir", f"{td}/dn", src])
+    den = read(f"{td}/dn/frame_denoised.pcd")
+    outlier_rows = {tuple(r) for r in orig[len(frame):].tolist()}
+    n_out_left = sum(tuple(r) in outlier_rows for r in den.tolist())
+    ms["project"] = run(["project", "--out-dir", f"{td}/pj", src])
+    proj = read(f"{td}/pj/frame_proj.pcd")
+    ms["concat"] = run(["concat", "--out", f"{td}/cat.pcd", src, f"{td}/tf/frame_tf.pcd"])
+    n_cat = len(read(f"{td}/cat.pcd"))
+    print(f"cloud_ops on a {len(xyz)}-point frame ({N_OUTLIERS} injected outliers), ms wall per subcommand "
+          f"(load, device work, write): { {k: round(v, 2) for k, v in ms.items()} }; transform and back max error "
+          f"{back_err:.2e} (bound 1e-5); crop kept {len(cropped)} rows (band {len(band)}); denoise kept "
+          f"{len(den)} rows, {n_out_left} of them outliers; project max |z| {float(np.abs(proj[:, 2]).max())}; "
+          f"concat {n_cat} rows", flush=True)
+    if not back_err <= 1e-5:
+        fail("cloud_ops: transform and its inverse do not return the points")
+    if len(cropped) != len(band) or not np.array_equal(np.sort(cropped, axis=0), np.sort(band, axis=0)):
+        fail("cloud_ops: crop did not keep exactly the band")
+    if n_out_left > 0.01 * N_OUTLIERS or len(den) < 0.5 * len(frame):
+        fail("cloud_ops: denoise did not drop the injected outliers")
+    if np.abs(proj[:, 2]).max() != 0 or not np.array_equal(proj[:, :2], orig[:, :2]):
+        fail("cloud_ops: project is off")
+    if n_cat != 2 * len(xyz):
+        fail("cloud_ops: concat row count is not the sum of its inputs")
+
+
 def main(argv=None) -> int:
     import torch
 
     ap = argparse.ArgumentParser(description="On-card smoke test of the PyTorch/CUDA port.")
     ap.add_argument("--profile", action="store_true", help="profile the paths instead of checking them")
-    ap.add_argument("--seed", type=int, default=0, help="seed of phase 7's tabletop frames")
+    ap.add_argument("--seed", type=int, default=0, help="seed of the scenes of phases 7 and 8")
     args = ap.parse_args(sys.argv[1:] if argv is None else argv)
 
     if not torch.cuda.is_available():
@@ -624,7 +1084,7 @@ def main(argv=None) -> int:
     from mapping_private_tpu_torch.ops.nn_dispatch import nn_1nn
     from mapping_private_tpu_torch.ops.normals import estimate_normals
     from mapping_private_tpu_torch.registration.icp import (
-        icp_point_to_plane, icp_point_to_plane_tiled)
+        icp_point_to_plane, icp_point_to_plane_tiled, size_tiled_lattice)
     from mapping_private_tpu_torch.registration.scan_to_map import ScanToMapTracker, TrackerConfig
 
     dev = torch.device("cuda")
@@ -979,6 +1439,31 @@ def main(argv=None) -> int:
     if n_sq or n_untied or not beyond_ok or found < 0.99 * N_BIG:
         fail("nn_1nn: the compact and brute engines disagree at 200k")
 
+    # the dense lattice against the compact engine: the same stencil over
+    # the same direct differences, so d² bit for bit, indices equal untied
+    lat_walls = []
+    for turn in range(2):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        i_l, s_l = nn_1nn(big_src, ones, big_tgt, ones, radius=BIG_RADIUS, engine="lattice")
+        torch.cuda.synchronize()
+        lat_walls.append(1e3 * (time.perf_counter() - t0))
+        peak_mb = (torch.cuda.max_memory_allocated() - base) / 2**20
+    i_l, s_l = i_l.cpu().numpy(), s_l.cpu().numpy()
+    n_sq_l = int((bits(s_l) != bits(s_c)).sum())
+    differ = i_l != i_c
+    d_l = ((big_src_np[differ] - big_tgt_np[np.maximum(i_l[differ], 0)]) ** 2).sum(1)
+    d_c = ((big_src_np[differ] - big_tgt_np[np.maximum(i_c[differ], 0)]) ** 2).sum(1)
+    n_untied_l = int(((np.abs(d_l - d_c) > 1e-9) | (i_l[differ] < 0) | (i_c[differ] < 0)).sum())
+    print(f"nn_1nn {N_BIG}x{N_BIG} radius {BIG_RADIUS} engine lattice: {lat_walls[1]:.2f} ms warm "
+          f"({lat_walls[0]:.2f} first) against compact {walls['compact'][1]:.2f} ms warm, wall with sync; "
+          f"peak memory above the inputs {peak_mb:.1f} MiB; sq bit mismatches against compact {n_sq_l}, "
+          f"index differences {int(differ.sum())} of which untied {n_untied_l} [{smi}]", flush=True)
+    if n_sq_l or n_untied_l:
+        fail("nn_1nn: the lattice and compact engines disagree at 200k")
+
     xi_big = torch.tensor([0.02, -0.015, 0.01, 0.004, -0.003, 0.005])
     T_big = se3_exp(xi_big).numpy().astype(np.float64)
     moved = ((big_src_np.astype(np.float64) - T_big[:3, 3]) @ T_big[:3, :3]).astype(np.float32)
@@ -999,6 +1484,33 @@ def main(argv=None) -> int:
           f"per-sweep RMSE {[float(f'{v:.4g}') for v in per_iter]} [{smi}]", flush=True)
     if not np.isfinite(T_got).all() or err_big >= 0.01 or n_corr <= 0.9 * N_BIG or not per_iter[-1] < per_iter[0]:
         fail("tiled ICP at 200k did not converge")
+
+    # the dense lattice (max_tiles=0) on the lattice icp_point_to_plane_tiled
+    # sizes, and the segmented re-bucketing, against that compact run
+    lattice = size_tiled_lattice(moved_d, ones, big_tgt, ones, tile_size=BIG_RADIUS, cap_per_cell=128)
+    lattice["max_tiles"] = 0
+    modes = {
+        "dense lattice (max_tiles=0)": lambda: icp_point_to_plane(
+            moved_d, ones, big_tgt, ones, big_nrm, nn_backend="tiled", grid_cell=BIG_RADIUS, iters=6, **lattice),
+        "segmented (rebucket_sweeps=2)": lambda: icp_point_to_plane_tiled(
+            moved_d, ones, big_tgt, ones, big_nrm, tile_size=BIG_RADIUS, cap_per_cell=128, iters=6,
+            rebucket_sweeps=2),
+    }
+    for mode, run in modes.items():
+        mode_walls = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r_m = run()
+            T_m = r_m.transform.cpu().numpy()
+            mode_walls.append(1e3 * (time.perf_counter() - t0))
+        dT = float(np.abs(T_m - T_got).max())
+        print(f"icp_point_to_plane {mode}, {N_BIG} points, 6 sweeps, tile {BIG_RADIUS}, lattice "
+              f"{lattice['tile_dims']}: {mode_walls[1]:.2f} ms warm ({mode_walls[0]:.2f} first) against compact "
+              f"{icp_walls[1]:.2f} ms; max |T - T_compact| {dT:.3g} (bound 1e-5), num_corr {int(r_m.num_corr)} "
+              f"(compact {n_corr}) [{smi}]", flush=True)
+        if not dT <= 1e-5 or int(r_m.num_corr) != n_corr:
+            fail(f"tiled ICP {mode} disagrees with the compact per-sweep run")
 
     # -- phase 6: the mapping loop ---------------------------------------------
     poses, map_scans = zip(*(map_scan(k, se3_exp, torch) for k in range(N_MAP_SCANS)))
@@ -1048,6 +1560,9 @@ def main(argv=None) -> int:
 
     # -- phase 7: the tabletop slice -------------------------------------------
     phase_tabletop(torch, dev, smi, args.seed)
+
+    # -- phase 8: the structural scenes ----------------------------------------
+    phase_structural(torch, dev, smi, args.seed)
 
     kernels = []
     for name, r in results.items():

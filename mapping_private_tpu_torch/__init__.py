@@ -6,20 +6,24 @@ mirror the JAX package so each counterpart is easy to find.  It imports
 torch and numpy, never jax and never ``mapping_private_tpu``.
 
 Slices ported so far: scan-to-scan registration and the mapping loop
-(``apps.icp_register``, ``apps.build_map``) and tabletop perception
-(``apps.table_pipeline``, ``apps.clean_table``):
+(``apps.icp_register``, ``apps.build_map``), tabletop perception
+(``apps.table_pipeline``, ``apps.clean_table``) and the structural-scene
+models (``apps.room_segment``, ``apps.cloud_ops``):
 
 core          PointCloud (fixed capacity + mask), SE(3) maps, 6×6 solve
 io            PCD reader/writer, markers and PLY (host-side numpy)
 ops           kNN (brute force, grid hash), normals, the three 1-NN
-              kernels and their front door, voxel downsampling, filters,
-              clustering, hulls, MLS smoothing
+              kernels and their front door (brute, compact tiles, dense
+              lattice), voxel downsampling, filters, clustering, region
+              growing, hulls, MLS smoothing, depth-image triangulation
 fit           batched-hypothesis RANSAC (plane, 2-D line and circle,
-              cylinder), oriented boxes
-registration  point-to-plane ICP (dense and tiled), scan-to-map
-              tracking, pose-graph relaxation
-models        the tabletop detector and the table memory
-apps          the four CLIs, each with ``--device`` (default cuda)
+              cylinder, surface of revolution, Manhattan orientation),
+              oriented boxes
+registration  point-to-plane ICP (dense, tiled, segmented re-bucketing),
+              scan-to-map tracking, pose-graph relaxation
+models        the tabletop detectors (unordered and organized clouds),
+              the table memory, room segmentation, layered reconstruction
+apps          the six CLIs, each with ``--device`` (default cuda)
 csrc          hand-written CUDA C++ kernels for Hopper (sm_90a)
 """
 

@@ -12,6 +12,11 @@ import torch
 _EPS = 1e-9
 
 
+def se3_identity(dtype: torch.dtype = torch.float32, device: torch.device | str | None = None) -> torch.Tensor:
+    """The (4,4) identity pose."""
+    return torch.eye(4, dtype=dtype, device=device)
+
+
 def skew(w: torch.Tensor) -> torch.Tensor:
     """(3,) -> (3,3) cross-product matrix."""
     wx, wy, wz = w[0], w[1], w[2]

@@ -36,6 +36,17 @@ def _unpack_rgb(rgb_f32: np.ndarray) -> Tuple[np.ndarray, np.ndarray, np.ndarray
     return r, g, b
 
 
+def pack_rgb(r: np.ndarray, g: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """r, g, b in [0, 255] → PCL's packed-float rgb: the bits
+    (r<<16)|(g<<8)|b reinterpreted as float32 (``_unpack_rgb``'s inverse)."""
+    bits = (
+        (np.clip(r, 0, 255).astype(np.uint32) << 16)
+        | (np.clip(g, 0, 255).astype(np.uint32) << 8)
+        | np.clip(b, 0, 255).astype(np.uint32)
+    )
+    return bits.view(np.float32)
+
+
 def load_pcd_arrays(path: str) -> Dict[str, np.ndarray]:
     """Parse a PCD file into named numpy arrays (one key per field; packed
     rgb expanded into r/g/b as well as kept raw)."""

@@ -1,1 +1,33 @@
-"""End-to-end models: the tabletop detector and the table memory."""
+"""End-to-end models: the tabletop detectors (unordered and organized
+clouds), the table memory, room segmentation and layered reconstruction."""
+from mapping_private_tpu_torch.models.room_segmentation import (
+    RoomSegmentation,
+    RoomSegmentationConfig,
+    segment_room,
+    wall_filter,
+)
+from mapping_private_tpu_torch.models.table_detector import (
+    TableDetection,
+    TableDetectorConfig,
+    detect_table,
+)
+from mapping_private_tpu_torch.models.table_memory import (
+    Table,
+    TableMemory,
+    TableObject,
+    TableStateInstance,
+)
+
+__all__ = [
+    "TableDetectorConfig",
+    "TableDetection",
+    "detect_table",
+    "TableMemory",
+    "Table",
+    "TableObject",
+    "TableStateInstance",
+    "RoomSegmentationConfig",
+    "RoomSegmentation",
+    "segment_room",
+    "wall_filter",
+]

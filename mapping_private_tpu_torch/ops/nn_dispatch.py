@@ -8,7 +8,12 @@ Counterpart of ``mapping_private_tpu/ops/nn_dispatch.py``: a single
 - **compact** (``ops.tiled_nn.CompactTiles``): occupied-tiles stencil
   engine, work N·27·cap instead of N·M.  Needs a search ``radius`` (the
   tile size); exact within it.
-- **lattice** (the dense ``TileSet`` engine) is not ported.
+- **lattice** (``ops.tiled_nn.TileSet``): the dense-lattice variant of
+  the same stencil, a bucket row for every lattice cell, occupied or
+  not.  Same contract and the same distances as compact.  The JAX
+  package falls back to compact above ``LATTICE_CELL_LIMIT`` cells (a
+  limit of its compiler); this port has no such limit and always runs
+  the lattice it is asked for.
 
 This is a host-level dispatcher: it reads concrete bounds and occupancy
 to size the lattice, in two host syncs (the live counts with the bounds,
@@ -59,21 +64,18 @@ def nn_1nn(
     the device the tensors are on.
 
     Returns (idx (N,) int32 target rows or −1, sq_dists (N,)).  With a
-    ``radius``, matches farther than it return −1 (and the compact engine
-    uses it as its tile size — required for engine 'compact' and for
-    auto-dispatch past ``BRUTE_PAIR_LIMIT``).
+    ``radius``, matches farther than it return −1 (and the tiled engines
+    use it as their tile size — required for engines 'compact' and
+    'lattice' and for auto-dispatch past ``BRUTE_PAIR_LIMIT``).
     """
     if engine == "auto":
         # dispatch on CAPACITIES (free): brute-force cost is the padded
         # N×M whatever the masks say
         engine = choose_nn_engine(query_xyz.shape[0], target_xyz.shape[0], radius)
-    if engine == "lattice":
-        raise NotImplementedError(
-            "engine='lattice' is the dense TileSet engine: ROADMAP §1 item 6")
-    if engine not in ("brute", "compact"):
+    if engine not in ("brute", "compact", "lattice"):
         raise ValueError(f"unknown engine {engine!r}")
-    if engine == "compact" and radius is None:
-        raise ValueError("engine='compact' needs a search radius")
+    if engine != "brute" and radius is None:
+        raise ValueError(f"engine='{engine}' needs a search radius")
 
     # one sync: the two live counts and both clouds' bounds, 14 scalars
     bt = tiled_nn.masked_bounds(target_xyz, target_mask)
@@ -91,7 +93,7 @@ def nn_1nn(
         b = stats[2:].reshape(2, 2, 3)
         lo, dims = _lattice_geometry([b[0], b[1]], radius)
         tiled_nn.check_lattice_dims(dims, radius)
-        idx, sq = _tiled_1nn(query_xyz, query_mask, target_xyz, target_mask, lo, radius, dims)
+        idx, sq = _tiled_1nn(query_xyz, query_mask, target_xyz, target_mask, lo, radius, dims, engine)
 
     if radius is not None:
         out = query_mask & (sq <= float(np.float32(radius) ** 2))
@@ -106,16 +108,21 @@ def _brute_1nn(query_xyz, query_mask, target_xyz, target_mask):
     return nn_argmin_prepared(qry, prepare_nn_ref_argmin(tgt))
 
 
-def _tiled_1nn(query_xyz, query_mask, target_xyz, target_mask, lo, radius, dims):
+def _tiled_1nn(query_xyz, query_mask, target_xyz, target_mask, lo, radius, dims, engine):
     # both occupancies in one sync
     ot = tiled_nn.lattice_occupancy(target_xyz, target_mask, lo, radius, dims)
     oq = tiled_nn.lattice_occupancy(query_xyz, query_mask, lo, radius, dims)
     occ_t, cap_t, occ_q, cap_q = (int(v) for v in torch.stack([*ot, *oq]).cpu())
-    # max_tiles MUST cover all target-occupied tiles (target spill is
-    # unsafe — see build_compact_tiles), so size it from the larger side's
-    # exact occupancy plus margin; caps cover the densest cell of each side
+    # caps cover the densest cell of each side, lane-padded
     cap_t = max(128, -(-cap_t // 128) * 128)
     cap_q = max(128, -(-cap_q // 128) * 128)
+    if engine == "lattice":
+        tgt = tiled_nn.build_tiles(target_xyz, target_mask, lo, radius, dims, cap_t)
+        qry = tiled_nn.build_tiles(query_xyz, query_mask, lo, radius, dims, cap_q)
+        return tiled_nn.tiled_nn_1nn(tgt, qry, query_xyz)
+    # max_tiles MUST cover all target-occupied tiles (target spill is
+    # unsafe — see build_compact_tiles), so size it from the larger side's
+    # exact occupancy plus margin
     mt = 1 << int(np.ceil(np.log2(max(int(1.2 * max(occ_t, occ_q)), 64))))
     tgt = tiled_nn.build_compact_tiles(target_xyz, target_mask, lo, radius, dims, cap_t, mt)
     qry = tiled_nn.build_compact_tiles(

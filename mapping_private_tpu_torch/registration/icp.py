@@ -24,9 +24,12 @@ from mapping_private_tpu_torch.ops.nn_argmin import (
     prepare_nn_ref_argmin,
 )
 from mapping_private_tpu_torch.ops.tiled_nn import (
+    build_compact_tiles,
     check_lattice_dims,
+    compact_nn_1nn,
     lattice_occupancy,
     masked_bounds,
+    refresh_compact_coords,
     tiled_nn_for_icp,
 )
 
@@ -101,12 +104,22 @@ def icp_point_to_plane(
     kernel for CUDA tensors, its plain version for CPU tensors; 'xla' —
     the dense brute force of ops/neighbors.py (the JAX package's name for
     it); 'grid' — the grid-hash stencil of ops/neighbors.py; 'tiled' —
-    the compact occupied-tiles engine of ops/tiled_nn.py, the big-cloud
-    path with N·27·cap work, on the lattice (tile_origin, tile_dims) with
-    max_tiles bucket rows (use icp_point_to_plane_tiled to size them from
-    the clouds).  grid_cell is the cell size of 'grid' and the tile size
-    of 'tiled' (must be ≥ the largest correspondence distance you care
-    about); cap_per_cell the points kept per cell or tile.
+    the stencil engines of ops/tiled_nn.py, the big-cloud path with
+    N·27·cap work, on the lattice (tile_origin, tile_dims): the compact
+    occupied-tiles engine with max_tiles bucket rows (use
+    icp_point_to_plane_tiled to size them from the clouds), or the dense
+    lattice with max_tiles=0.  grid_cell is the cell size of 'grid' and
+    the tile size of 'tiled' (must be ≥ the largest correspondence
+    distance you care about); cap_per_cell the points kept per cell or
+    tile.
+
+    rebucket_sweeps=k (compact engine only; the dense lattice ignores
+    it, as in the JAX package): the query slot assignments are rebuilt
+    only at the entry of k uniform segments of j = ceil(iters/k) sweeps
+    (sweeps 0, j, 2j, …); the other sweeps of a segment re-scatter the
+    moved coordinates into that layout (refresh_compact_coords).  A
+    query δ from where it was bucketed keeps its guaranteed NN radius
+    tile_size − δ.  Without it the queries are re-bucketed every sweep.
     """
     if nn_backend == "auto":
         tgt_padded = torch.where(tgt_mask[:, None], tgt_xyz, PAD_COORD)
@@ -134,16 +147,16 @@ def icp_point_to_plane(
             raise ValueError(
                 "nn_backend='tiled' needs tile_origin/tile_dims — "
                 "call icp_point_to_plane_tiled(...) instead")
-        if rebucket_sweeps is not None:
-            raise NotImplementedError(
-                "rebucket_sweeps (segmented re-bucketing with refresh_compact_coords): "
-                "ROADMAP §1 item 6")
-        # the target is bucketed once; the queries are re-bucketed every
-        # sweep at their current pose (max_tiles=0 raises there)
+        # the target is bucketed once; the queries at their current pose
         origin = torch.as_tensor(tile_origin, dtype=torch.float32, device=tgt_xyz.device)
-        nn_fn = tiled_nn_for_icp(
-            tgt_xyz, tgt_mask, origin, grid_cell, tile_dims, cap_per_cell,
-            max_tiles=max_tiles, query_mask=src_mask)
+        if rebucket_sweeps is not None and max_tiles > 0:
+            nn_fn = _segmented_nn(
+                tgt_xyz, tgt_mask, src_mask, origin, grid_cell, tile_dims, cap_per_cell,
+                max_tiles, -(-iters // min(max(int(rebucket_sweeps), 1), iters)))
+        else:
+            nn_fn = tiled_nn_for_icp(
+                tgt_xyz, tgt_mask, origin, grid_cell, tile_dims, cap_per_cell,
+                max_tiles=max_tiles, query_mask=src_mask)
 
     else:
         raise ValueError(f"unknown nn_backend {nn_backend!r}")
@@ -163,6 +176,28 @@ def icp_point_to_plane(
     return ICPResult(transform=T, rmse=per_iter[-1], num_corr=cnts[-1], per_iter_rmse=per_iter)
 
 
+def _segmented_nn(tgt_xyz, tgt_mask, src_mask, origin, tile, dims, cap, max_tiles, seg_len):
+    """The compact engine's nn_fn for segmented re-bucketing: the queries
+    are bucketed on the first call of every ``seg_len`` calls and only
+    re-scattered (refresh_compact_coords) on the others.  The JAX
+    package pads the last segment with masked no-op sweeps; here the
+    sweep loop simply ends at ``iters``."""
+    tgt_tiles = build_compact_tiles(tgt_xyz, tgt_mask, origin, tile, dims, cap, max_tiles)
+    calls, layout = 0, None
+
+    def nn_fn(p):
+        nonlocal calls, layout
+        if calls % seg_len == 0:
+            layout = qt = build_compact_tiles(
+                p, src_mask, origin, tile, dims, cap, max_tiles, query_only=True)
+        else:
+            qt = refresh_compact_coords(layout, p)
+        calls += 1
+        return compact_nn_1nn(tgt_tiles, qt)
+
+    return nn_fn
+
+
 def _lattice_geom(bt, bs, t):
     """Union lattice geometry from two (lo, hi) bounds pairs, on the
     device, so the sizing chain syncs once (see icp_point_to_plane_tiled)."""
@@ -172,14 +207,12 @@ def _lattice_geom(bt, bs, t):
     return lo, dims
 
 
-def icp_point_to_plane_tiled(
-    src_xyz, src_mask, tgt_xyz, tgt_mask, tgt_normals,
-    tile_size: float = 0.25, cap_per_cell: int = 256, **kwargs
-) -> ICPResult:
-    """Big-cloud ICP: sizes the tile lattice AND the occupied-tile slot
-    capacity from the clouds' bounds and occupancy, then runs the solver
-    with the 'tiled' NN backend (compact occupied-tile blocks — see
-    ops/tiled_nn.py CompactTiles).
+def size_tiled_lattice(src_xyz, src_mask, tgt_xyz, tgt_mask, tile_size: float = 0.25,
+                       cap_per_cell: int = 256) -> dict:
+    """The tiled backend's lattice for this pair of clouds, as the keyword
+    arguments of ``icp_point_to_plane`` (tile_origin, tile_dims,
+    cap_per_cell, max_tiles): the union of both clouds' live bounds with
+    two tiles of margin.
 
     Occupied-tile capacity contract: max_tiles MUST cover every
     target-occupied tile — a spilled TARGET tile silently vanishes from
@@ -208,13 +241,22 @@ def icp_point_to_plane_tiled(
     max_tiles = 1 << int(np.ceil(np.log2(max(int(1.5 * occ), 64))))
     if max_tiles < occ_t:
         raise RuntimeError(f"max_tiles {max_tiles} does not cover the target's {occ_t} occupied tiles")
-    cap = max(cap_per_cell, -(-maxcell_t // 128) * 128)
+    return dict(tile_origin=tuple(float(v) for v in lo), tile_dims=dims,
+                cap_per_cell=max(cap_per_cell, -(-maxcell_t // 128) * 128), max_tiles=max_tiles)
+
+
+def icp_point_to_plane_tiled(
+    src_xyz, src_mask, tgt_xyz, tgt_mask, tgt_normals,
+    tile_size: float = 0.25, cap_per_cell: int = 256, **kwargs
+) -> ICPResult:
+    """Big-cloud ICP: sizes the tile lattice AND the occupied-tile slot
+    capacity from the clouds' bounds and occupancy (size_tiled_lattice),
+    then runs the solver with the 'tiled' NN backend (compact
+    occupied-tile blocks — see ops/tiled_nn.py CompactTiles)."""
+    lattice = size_tiled_lattice(src_xyz, src_mask, tgt_xyz, tgt_mask, tile_size, cap_per_cell)
     return icp_point_to_plane(
         src_xyz, src_mask, tgt_xyz, tgt_mask, tgt_normals,
-        nn_backend="tiled", grid_cell=tile_size, cap_per_cell=cap,
-        tile_origin=tuple(float(v) for v in lo), tile_dims=dims,
-        max_tiles=max_tiles, **kwargs
-    )
+        nn_backend="tiled", grid_cell=tile_size, **lattice, **kwargs)
 
 
 def ate_rmse(traj_a: torch.Tensor, traj_b: torch.Tensor) -> torch.Tensor:

@@ -3,14 +3,33 @@
 - The JAX package's random draws, reproduced on the CPU: the port's
   samplers take the uniforms ``u`` in place of a generator; the draws do
   not depend on the mask, so feeding these makes both packages sample
-  the same rows.
+  the same rows (``uniforms_from_jax``, ``detect_table_uniforms``,
+  ``layered_uniforms``).
 - ``jit_call``: a reference function run as one jitted program, which
   compiles several times faster than the same function op by op.
+- ``one_torch_thread``: a fixture a test module imports to run its torch
+  CPU ops on one thread.
 """
 import functools
 
 import jax
 import numpy as np
+import pytest
+import torch
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """The importing module's torch CPU ops on one thread, the previous
+    count restored after it.  The full suite runs six pytest-xdist
+    workers on one machine; with torch's default pool of a thread per
+    core in each, every small op waits on the oversubscribed cores (the
+    compact engine's 5-slot chunk test took 1.4 s alone and 315 s
+    there)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def jit_call(fn, *args, **static):
@@ -35,3 +54,17 @@ def detect_table_uniforms(key, config):
     ``(sac_hypotheses, 3)`` block per candidate; (C, H, 3) numpy."""
     keys = jax.random.split(key, config.max_table_candidates)
     return np.stack([np.asarray(jax.random.uniform(k, (config.sac_hypotheses, 3))) for k in keys])
+
+
+def layered_uniforms(key, n_layers, num_hypotheses):
+    """What ``layered_reconstruction`` draws for each fitted layer in
+    turn: ``key, sub = split(key)``, ``kl, kc = split(sub)``, then the
+    line fit's (H, 2) and the circle fit's (H, 3) uniforms.  A list of
+    (line, circle) numpy pairs, one for each of ``n_layers`` layers."""
+    out = []
+    for _ in range(n_layers):
+        key, sub = jax.random.split(key)
+        kl, kc = jax.random.split(sub)
+        out.append((np.asarray(jax.random.uniform(kl, (num_hypotheses, 2))),
+                    np.asarray(jax.random.uniform(kc, (num_hypotheses, 3)))))
+    return out

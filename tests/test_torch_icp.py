@@ -4,7 +4,8 @@ synthetic cases of tests/test_icp.py.
 For the exact backends the JAX side runs ``nn_backend="xla"``: its
 ``pallas`` route cannot run on the CPU outside interpret mode, and both
 routes compute the same GN from exact correspondences.  The ``grid`` and
-``tiled`` backends run against the JAX package's own.  Both packages get the same target cloud and
+``tiled`` backends run against the JAX package's own (the dense lattice
+and the segmented mode in tests/test_torch_icp_tiled.py).  Both packages get the same target cloud and
 the same (JAX-estimated) normals.  Tolerances: transform within 1e-5,
 per-sweep RMSE within rtol 1e-4, correspondence count exact.  Once a run
 has converged its RMSE is f32 rounding noise (~2e-8 for coordinates of
@@ -14,6 +15,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax_ref import one_torch_thread  # noqa: F401 (fixture)
 from test_icp import _bumpy_surface
 
 from mapping_private_tpu.core import PointCloud, se3_apply, se3_exp, se3_inverse
@@ -71,16 +73,9 @@ def test_icp_dead_rows_match_jax(backend):
     assert int(rt.num_corr) == int(rj.num_corr)
 
 
-@pytest.mark.parametrize("what", ["tiled", "tiled_rebucket"])
-def test_unported_backends_raise(what):
-    """What is still queued: the dense-lattice engine (max_tiles=0) and
-    the segmented re-bucketing mode."""
+def test_tiled_argument_errors():
+    """The tiled backend needs its lattice; an unknown backend is refused."""
     arrays, _ = _inputs(0, [0.0] * 6)
-    kw = dict(nn_backend="tiled", tile_origin=(-3.0, -3.0, -3.0), tile_dims=(24, 24, 24))
-    if what == "tiled_rebucket":
-        kw.update(max_tiles=64, rebucket_sweeps=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ticp.icp_point_to_plane(*[torch.tensor(a) for a in arrays], **kw)
     with pytest.raises(ValueError, match="tile_origin"):
         ticp.icp_point_to_plane(*[torch.tensor(a) for a in arrays], nn_backend="tiled")
     with pytest.raises(ValueError, match="unknown nn_backend"):

@@ -1,16 +1,22 @@
-"""Port parity: ops/tiled_nn.py (the compact occupied-tiles engine)
-against the JAX package, same numpy inputs through both.
+"""Port parity: ops/tiled_nn.py (the compact occupied-tiles engine and
+the dense lattice) against the JAX package, same numpy inputs through
+both.
 
-The bucket build is integer work and stable sorts: every field must be
-identical (the spare bucket row, the only scatter destination written
-more than once, is sliced off in both).  ``compact_nn_1nn`` sums the
-same direct differences in f32: squared distances within 1e-6, indices
-identical on rows where the best distance is not tied (``_minloc`` has
-no fixed order among equal distances in either package)."""
+The bucket builds are integer work and stable sorts: every field must be
+identical (the spare bucket row or tile, the only scatter destination
+written more than once, is sliced off in both), and so must the planes
+``refresh_compact_coords`` writes.  Both NN engines sum the same direct
+differences in f32; squared distances within 1e-6 of the JAX package's
+(its CPU program contracts the sum with fused multiply-adds, so a few
+last bits differ) and bit for bit equal to a numpy direct-difference
+oracle, which sums unfused as the port does.  Indices identical on rows
+where the best distance is not tied (the JAX ``_minloc`` has no fixed
+order among equal distances)."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax_ref import jit_call, one_torch_thread  # noqa: F401 (fixture)
 
 from mapping_private_tpu.ops import tiled_nn as jt
 from mapping_private_tpu_torch.ops import tiled_nn as tt
@@ -169,8 +175,11 @@ def test_tiled_nn_for_icp_compact_branch():
     it, st = (a.numpy() for a in ft(torch.from_numpy(p)))
     np.testing.assert_allclose(st, sj, rtol=0, atol=1e-6)
     assert (it == ij).mean() > 0.999
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tt.tiled_nn_for_icp(torch.from_numpy(tgt), torch.from_numpy(mask), lo, 0.25, dims, 128)
+    # the dense branch (max_tiles=0) returns the same correspondences
+    i0, s0 = (a.numpy() for a in tt.tiled_nn_for_icp(
+        torch.from_numpy(tgt), torch.from_numpy(mask), lo, 0.25, dims, 64)(torch.from_numpy(p)))
+    np.testing.assert_array_equal(s0, st)
+    assert (i0 == it).mean() > 0.999
 
 
 def test_tiled_nn_for_icp_query_mask():
@@ -185,6 +194,103 @@ def test_tiled_nn_for_icp_query_mask():
     i_m, s_m = tt.tiled_nn_for_icp(*args, max_tiles=128, query_mask=live)(p)
     assert (i_m[~live] == -1).all() and torch.isinf(s_m[~live]).all()
     assert torch.equal(s_m[live], s_all[live]) and torch.equal(i_m[live], i_all[live])
+
+
+def _oracle_sq(qry, tgt, idx):
+    """Squared distances to the chosen rows, summed unfused in f32."""
+    e = qry - tgt[np.maximum(idx, 0)]
+    d = e[:, 0] * e[:, 0] + e[:, 1] * e[:, 1] + e[:, 2] * e[:, 2]
+    return np.where(idx >= 0, d, np.float32(np.inf))
+
+
+DENSE_FIELDS = ("xyz", "valid", "idx", "tile_of", "rank_of")
+
+
+@pytest.mark.parametrize("cap", [32, 4])
+def test_dense_build_matches(cap):
+    """Roomy tiles and cap overflow (rank ≥ 4 dropped)."""
+    xyz = _cloud(1500, 8)
+    mask = np.ones(1500, bool)
+    mask[::6] = False
+    lo, dims = _lattice(xyz, 0.25)
+    tj = jt.build_tiles(jnp.asarray(xyz), jnp.asarray(mask), lo, 0.25, dims, cap)
+    tl = tt.build_tiles(torch.from_numpy(xyz), torch.from_numpy(mask), lo, 0.25, dims, cap)
+    for f in DENSE_FIELDS:
+        got, want = getattr(tl, f).numpy(), np.asarray(getattr(tj, f))
+        assert got.shape == want.shape, f
+        np.testing.assert_array_equal(got, want, err_msg=f)
+    assert tl.xyz.shape == (dims[0] * dims[1] * dims[2], 3, cap) and tl.idx.dtype == torch.int32
+    assert (tl.dims, tl.cap) == (tj.dims, tj.cap)
+    assert (tl.tile_of.numpy()[~mask] == dims[0] * dims[1] * dims[2]).all()
+
+
+@pytest.mark.parametrize("chunk", [1 << 26, 32 * 32 * 7])
+def test_dense_nn_matches_jax_on_untied_rows(chunk, monkeypatch):
+    """tiled_nn_1nn in one block and in blocks of 7 tiles; a 16-point cap
+    on the query side, so some queries overflow to −1 / inf in both."""
+    monkeypatch.setattr(tt, "_CHUNK_ELEMS", chunk)
+    tgt = _cloud(1500, 4)
+    qry = (tgt[:1200] + np.random.default_rng(5).normal(0, 0.01, (1200, 3))).astype(np.float32)
+    tm = np.ones(1500, bool)
+    tm[::7] = False
+    qm = np.ones(1200, bool)
+    qm[5:9] = False
+    lo, dims = _lattice(np.concatenate([tgt, qry]), 0.25)
+    tj = jt.build_tiles(jnp.asarray(tgt), jnp.asarray(tm), lo, 0.25, dims, 32)
+    qj = jt.build_tiles(jnp.asarray(qry), jnp.asarray(qm), lo, 0.25, dims, 16)
+    tl = tt.build_tiles(torch.from_numpy(tgt), torch.from_numpy(tm), lo, 0.25, dims, 32)
+    ql = tt.build_tiles(torch.from_numpy(qry), torch.from_numpy(qm), lo, 0.25, dims, 16)
+    ij, sj = (np.asarray(a) for a in jit_call(jt.tiled_nn_1nn, tj, qj, jnp.asarray(qry)))
+    it, st = (a.numpy() for a in tt.tiled_nn_1nn(tl, ql, torch.from_numpy(qry)))
+    assert it.dtype == np.int32 and st.dtype == np.float32
+    np.testing.assert_array_equal(it == -1, ij == -1)
+    over = ql.rank_of.numpy() >= 16
+    assert over.sum() > 0 and (it[over] == -1).all() and (it[~qm] == -1).all()
+    np.testing.assert_allclose(st, sj, rtol=0, atol=1e-6)
+    np.testing.assert_array_equal(st, _oracle_sq(qry, tgt, it))
+    live_t = np.flatnonzero(tm)
+    d2 = ((qry[:, None, :].astype(np.float64) - tgt[None, tm, :]) ** 2).sum(-1)
+    part = np.partition(d2, 1, axis=1)
+    untied = (it >= 0) & (part[:, 1] - part[:, 0] > 1e-6)
+    assert untied.sum() > 800
+    np.testing.assert_array_equal(it[untied], ij[untied])
+    np.testing.assert_array_equal(it[untied], live_t[d2.argmin(1)][untied])
+
+
+def test_dense_and_compact_agree_bit_for_bit():
+    """The two engines walk the same stencil over the same distances."""
+    tgt = _cloud(1500, 9)
+    qry = (tgt[::-1] + np.float32(0.02)).astype(np.float32)
+    ones = np.ones(1500, bool)
+    lo, dims = _lattice(np.concatenate([tgt, qry]), 0.25)
+    dense = tt.tiled_nn_1nn(
+        tt.build_tiles(torch.from_numpy(tgt), torch.from_numpy(ones), lo, 0.25, dims, 32),
+        tt.build_tiles(torch.from_numpy(qry), torch.from_numpy(ones), lo, 0.25, dims, 32),
+        torch.from_numpy(qry))
+    _, ct = _build_both(tgt, ones, lo, 0.25, dims, 32, 256)
+    _, cq = _build_both(qry, ones, lo, 0.25, dims, 32, 256, query_only=True)
+    compact = tt.compact_nn_1nn(ct, cq)
+    assert torch.equal(dense[1], compact[1])
+    assert (dense[0] == compact[0]).float().mean() > 0.999
+
+
+@pytest.mark.parametrize("query_only", [False, True])
+def test_refresh_compact_coords_matches(query_only):
+    """Moved coordinates re-scattered into the old layout: the same planes
+    as the JAX package's sorted scatter, and at the build's own
+    coordinates the planes of the build."""
+    xyz = _cloud(3000, 10)
+    mask = np.ones(3000, bool)
+    mask[::5] = False
+    lo, dims = _lattice(xyz, 0.25)
+    cj, ct = _build_both(xyz, mask, lo, 0.25, dims, 8, 40, query_only=query_only)
+    assert torch.equal(tt.refresh_compact_coords(ct, torch.from_numpy(xyz)).xyz, ct.xyz)
+    moved = (xyz + np.float32(0.013)).astype(np.float32)
+    rj = jt.refresh_compact_coords(cj, jnp.asarray(moved))
+    rt = tt.refresh_compact_coords(ct, torch.from_numpy(moved))
+    np.testing.assert_array_equal(rt.xyz.numpy(), np.asarray(rj.xyz))
+    for f in ("tile_id", "slot_of_pt", "rank_of", "valid", "idx"):
+        assert getattr(rt, f) is getattr(ct, f)
 
 
 @pytest.mark.parametrize("dims,what", [((2048, 2048, 512), "2\\*\\*31"), ((1024, 1024, 512), "1 GiB")])
