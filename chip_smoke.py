@@ -116,13 +116,45 @@ Phases (any failure exits non-zero before the result line):
    band's rows exactly), denoise (the 1,000 injected outliers dropped),
    project and concat (rows add up) on phase 7's frame.
 
+9. Object recognition and classification (no NN kernel lies on it),
+   synthetic from ``--seed``.  Phase 7's frame coloured by surface (the
+   table top brown, the floor and the wall greys, box 1 red, box 2 green,
+   the cylinders blue and yellow, +-10 of integer noise a channel) goes
+   through ``python -m mapping_private_tpu_torch.apps.detect_object`` at
+   the CLI's 1 cm voxels (a grid of some 17.6 million voxels): the
+   learn-threshold, learn-scene (two frames of other seeds, 4 cm blocks)
+   and learn-object (box 1's points cropped from five frames of other
+   seeds, two turned 90 degrees about z) subcommands through the CLI's
+   ``main``, then ``detect`` with ``--block-size 4``, ``--ranges`` box
+   1's extent in the scene's 4 cm subdivisions (how many its points span)
+   and ``--exist-threshold`` 0.8 of box 1's occupied voxels (at the
+   default of 10 any sub-box of red voxels near-ties with the whole box),
+   with and without ``--scene-pca``: the top box must contain box 1's
+   centroid in both; the same commands with
+   ``--device cpu`` (run alongside, on CPU_RUN_THREADS threads) must rank
+   the same 5 boxes with scores within 1e-4.  Then the warm wall time of
+   voxelize, colorchlac117_subdiv, build_scene_data and search_object and
+   the peak device memory of a detect call.  On the committed 63-object
+   corpus features (``tests/data_corpus_features_gr.npz``, 1,512 views):
+   ``leave_one_out_subspace`` for r (rate above 0.85) and g (between 0.25
+   and 0.75) and ``crossval_svm(n_folds=4)`` for r (above 0.80), the
+   gates of tests/test_evaluation.py, each count beside the JAX
+   package's (EVALUATION.md) with its wall time and whether the SVM
+   trainer warned of max_iter.  Last, ``python -m
+   mapping_private_tpu_torch.apps.classify rate --leave-one-out --feature
+   r`` on a synthetic corpus written as PCD files (8 objects of distinct
+   shape and colour, 24 views each of 2,000 points): a rate of at least
+   0.9 on the card, and the CPU run's within one view of it.
+
 ``python3 chip_smoke.py --profile`` builds the kernels and then, instead
-of phases 2-8, profiles with torch.profiler one warm pair of phase 3
+of phases 2-9, profiles with torch.profiler one warm pair of phase 3
 (normals + 20 ICP sweeps), one warm tracker step of phase 6, phase 5's
 tiled ICP call, phase 7's denoise of a frame and ``detect_table`` call,
-and phase 8's ``segment_room`` and ``detect_table_sr`` calls (device
-time by kernel, launches, the device's idle share); it prints no result
-line.  ``--seed N`` (default 0) makes the scenes of phases 7 and 8.
+phase 8's ``segment_room`` and ``detect_table_sr`` calls, and phase 9's
+``detect`` of box 1 in the coloured frame and ``leave_one_out_subspace``
+of the corpus's r features (device time by kernel, launches, the
+device's idle share); it prints no result line.  ``--seed N`` (default
+0) makes the scenes of phases 7, 8 and 9.
 
 Every launch count is set to 0 just before a path is driven and read just
 after.  Prints, before the last line, one JSON line {"kernels": [...]}
@@ -136,6 +168,7 @@ import argparse
 import contextlib
 import io
 import json
+import os
 import pathlib
 import statistics
 import subprocess
@@ -356,13 +389,15 @@ def map_scan(k: int, se3_exp, torch):
     return T, ((world - T[:3, 3]) @ T[:3, :3]).astype(np.float32)
 
 
-def tabletop_frame(seed: int, shift=(0.0, 0.0)):
+def tabletop_frame(seed: int, shift=(0.0, 0.0), labels: bool = False):
     """Phase 7's frame: N_TABLE points on the table top (2 mm noise), the
     objects of TABLE_OBJECTS, the floor (3 x 3 m at z = 0) and a wall (x =
     1.4, 3 m wide, 2 m high), each surface's share of the points in
     proportion to its area, all moved by ``shift`` in x, y.  Returns (xyz
     (N_TABLE, 3) float32 shuffled, [(kind, centroid of the object's
-    points)])."""
+    points)]), and with ``labels`` each point's surface as a third item
+    (0 the table top, 1-4 the objects in TABLE_OBJECTS' order, 5 the
+    floor, 6 the wall)."""
     rng = np.random.default_rng(seed)
     sides = lambda dx, dy, h: (dx + dy) * 2 * h  # noqa: E731
     areas = [4 * TABLE_HALF[0] * TABLE_HALF[1]]
@@ -395,7 +430,10 @@ def tabletop_frame(seed: int, shift=(0.0, 0.0)):
     parts.append(np.column_stack([rng.uniform(-1.5, 1.5, (n_floor, 2)), np.zeros(n_floor)]))
     parts.append(np.column_stack([np.full(n_wall, 1.4), rng.uniform(-1.5, 1.5, n_wall), rng.uniform(0, 2, n_wall)]))
     xyz = np.concatenate(parts) + [shift[0], shift[1], 0.0]
-    return xyz[rng.permutation(N_TABLE)].astype(np.float32), truth
+    order = rng.permutation(N_TABLE)
+    if labels:
+        return xyz[order].astype(np.float32), truth, np.repeat(np.arange(len(counts)), counts)[order]
+    return xyz[order].astype(np.float32), truth
 
 
 def room_surfaces():
@@ -561,8 +599,10 @@ def profile_paths(torch, dev, smi: str, seed: int):
     """--profile: where the time goes in a pair of phase 3 (scan 1 onto scan
     0), in a tracker step of phase 6 (scan 4 against the map of scans 0-3),
     in phase 5's tiled ICP call, in phase 7's denoise of a box-filtered
-    frame and its detect_table call, and in phase 8's segment_room of the
-    room scan and detect_table_sr of the SwissRanger frame."""
+    frame and its detect_table call, in phase 8's segment_room of the
+    room scan and detect_table_sr of the SwissRanger frame, and in phase
+    9's detect of box 1 and leave-one-out protocol on the corpus's r
+    features."""
     from mapping_private_tpu_torch.core.cloud import PointCloud
     from mapping_private_tpu_torch.core.se3 import se3_exp
     from mapping_private_tpu_torch.ops.normals import estimate_normals
@@ -625,6 +665,28 @@ def profile_paths(torch, dev, smi: str, seed: int):
     vp = torch.tensor(SR_VIEW, device=dev)
     profile_call(torch, f"detect_table_sr at the default config, a {SR_SHAPE[1]} x {SR_SHAPE[0]} frame",
                  lambda: detect_table_sr(pts, valid, vp, gen), smi)
+
+    from mapping_private_tpu_torch.apps.detect_object import detect, learn_object
+    from mapping_private_tpu_torch.classify.evaluate import leave_one_out_subspace
+    from mapping_private_tpu_torch.io.pcd import save_pcd
+
+    with tempfile.TemporaryDirectory() as td:
+        scene_path, obj_pca = f"{td}/scene.pcd", f"{td}/box1.pca"
+        scene, _, lab = coloured_frame(seed)
+        save_pcd(scene_path, scene)
+        views = [f"{td}/box1_view{k}.pcd" for k in range(5)]
+        for k, path in enumerate(views):
+            save_pcd(path, box_view(seed + 10 + k, turn=k >= 3))
+        learn_object(views, obj_pca, 5, device=dev)
+        ranges, exist_thr, _ = detect_settings(scene, lab, views, dev)
+        profile_call(torch, f"detect_object.detect of box 1 in the coloured {N_TABLE}-point frame (PCD load "
+                     f"included), 1 cm voxels, block {DETECT_BLOCK}, ranges {ranges}",
+                     lambda: detect(scene_path, obj_pca, ranges, DETECT_BLOCK, 50, 5,
+                                    exist_threshold=exist_thr, device=dev), smi)
+    z = np.load(CORPUS_NPZ, allow_pickle=True)
+    profile_call(torch, "leave_one_out_subspace r on the committed corpus features (63 objects x 24 views)",
+                 lambda: leave_one_out_subspace(z["features_r"], z["labels"], list(z["names"]), "r", device=dev),
+                 smi)
 
 
 def check_detection(det, truth, label: str):
@@ -1050,12 +1112,356 @@ def phase_cloud_ops(seed: int, td: str):
         fail("cloud_ops: concat row count is not the sum of its inputs")
 
 
+# -- phase 9: object recognition and classification ---------------------------
+DETECT_BLOCK = 4  # --block-size: 4 cm subdivisions of the CLI's 1 cm voxels
+# colours by surface of tabletop_frame's labels: the table top brown, box 1
+# red, box 2 green, the cylinders blue and yellow, the floor grey, the wall
+# a light grey-brown; RGB_NOISE of uniform integer noise on each channel
+SURFACE_RGB = ((150, 110, 70), (200, 30, 30), (40, 170, 60), (40, 60, 200), (210, 200, 40),
+               (105, 105, 100), (185, 180, 170))
+RGB_NOISE = 10
+CORPUS_NPZ = REPO_ROOT / "tests" / "data_corpus_features_gr.npz"  # the committed 63-object g/r features
+JAX_CORPUS_CORRECT = {"r": 1379, "g": 452, "svm r": 1264}  # the JAX package's counts of 1,512 (EVALUATION.md)
+# the synthetic classify corpus: (shape, size in m, colour) of each object
+SYN_OBJECTS = (("box", (0.08, 0.08, 0.08), (200, 30, 30)),
+               ("cylinder", (0.03, 0.10), (40, 170, 60)),
+               ("sphere", (0.035,), (40, 60, 200)),
+               ("box", (0.12, 0.12, 0.01), (210, 200, 40)),
+               ("box", (0.05, 0.05, 0.12), (40, 190, 190)),
+               ("cylinder", (0.05, 0.04), (190, 40, 170)),
+               ("sphere", (0.06,), (200, 200, 200)),
+               ("box", (0.10, 0.06, 0.03), (230, 130, 30)))
+N_SYN_VIEWS = 24  # views per object, as in the reference's corpus
+N_SYN_POINTS = 2000  # points per view
+
+
+def coloured_frame(seed: int):
+    """Phase 7's frame (``tabletop_frame``) coloured by surface: the PCD
+    arrays (xyz, r, g, b with integer colours), the objects' truth and each
+    point's surface label."""
+    xyz, truth, lab = tabletop_frame(seed, labels=True)
+    rng = np.random.default_rng(seed + 7919)
+    rgb = np.clip(np.asarray(SURFACE_RGB)[lab] + rng.integers(-RGB_NOISE, RGB_NOISE + 1, (len(lab), 3)), 0, 255)
+    rgb = rgb.astype(np.float32)
+    return {"xyz": xyz, "r": rgb[:, 0], "g": rgb[:, 1], "b": rgb[:, 2]}, truth, lab
+
+
+def box_view(seed: int, turn: bool):
+    """Box 1's points cropped from the coloured frame of ``seed``;
+    ``turn`` turns them 90 degrees about z around the box's centre."""
+    arrays, _, lab = coloured_frame(seed)
+    out = {k: v[lab == 1] for k, v in arrays.items()}
+    if turn:
+        _, cx, cy, _ = TABLE_OBJECTS[0]
+        rz = np.array([[0.0, -1.0, 0.0], [1.0, 0.0, 0.0], [0.0, 0.0, 1.0]])
+        out["xyz"] = ((out["xyz"] - [cx, cy, 0.0]) @ rz.T + [cx, cy, 0.0]).astype(np.float32)
+    return out
+
+
+def syn_surface(shape: str, size, rng, n: int):
+    """n points on an object's whole surface and their outward normals."""
+    idx = np.arange(n)
+    if shape == "box":
+        ext = np.asarray(size)
+        areas = np.repeat([ext[1] * ext[2], ext[0] * ext[2], ext[0] * ext[1]], 2)
+        face = rng.choice(6, n, p=areas / areas.sum())
+        ax, sgn = face // 2, np.where(face % 2, 1.0, -1.0)
+        p = rng.uniform(-0.5, 0.5, (n, 3)) * ext
+        p[idx, ax] = sgn * ext[ax] / 2
+        nrm = np.zeros((n, 3))
+        nrm[idx, ax] = sgn
+    elif shape == "cylinder":
+        r, h = size
+        side = rng.uniform(size=n) < 2 * np.pi * r * h / (2 * np.pi * r * h + 2 * np.pi * r * r)
+        th = rng.uniform(0, 2 * np.pi, n)
+        rad = np.where(side, r, r * np.sqrt(rng.uniform(size=n)))
+        cap = np.where(rng.uniform(size=n) < 0.5, -h / 2, h / 2)
+        p = np.column_stack([rad * np.cos(th), rad * np.sin(th), np.where(side, rng.uniform(-h / 2, h / 2, n), cap)])
+        nrm = np.where(side[:, None], np.column_stack([np.cos(th), np.sin(th), np.zeros(n)]),
+                       np.column_stack([np.zeros(n), np.zeros(n), np.sign(cap)]))
+    else:
+        nrm = rng.normal(size=(n, 3))
+        nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+        p = size[0] * nrm
+    return p, nrm
+
+
+def syn_view(k: int, rng):
+    """One view of SYN_OBJECTS[k]: the side seen from a random viewpoint
+    above it, N_SYN_POINTS points with 0.5 mm noise, integer colours."""
+    shape, size, col = SYN_OBJECTS[k]
+    p, nrm = syn_surface(shape, size, rng, 4 * N_SYN_POINTS)
+    az, el = rng.uniform(0, 2 * np.pi), rng.uniform(0.2, 1.2)
+    view = np.array([np.cos(el) * np.cos(az), np.cos(el) * np.sin(az), np.sin(el)])
+    p = p[nrm @ view > 0.05][:N_SYN_POINTS]
+    p = (p + rng.normal(0, 0.0005, p.shape)).astype(np.float32)
+    rgb = np.clip(np.asarray(col) + rng.integers(-RGB_NOISE, RGB_NOISE + 1, (len(p), 3)), 0, 255).astype(np.float32)
+    return {"xyz": p, "r": rgb[:, 0], "g": rgb[:, 1], "b": rgb[:, 2]}
+
+
+def write_syn_corpus(root: str, seed: int) -> str:
+    """SYN_OBJECTS x N_SYN_VIEWS views as PCD files, one obj* directory an
+    object (the reference corpus's layout)."""
+    from mapping_private_tpu_torch.io.pcd import save_pcd
+
+    rng = np.random.default_rng(seed + 4243)
+    for k in range(len(SYN_OBJECTS)):
+        d = pathlib.Path(root) / f"obj{k:02d}"
+        d.mkdir(parents=True)
+        for v in range(N_SYN_VIEWS):
+            save_pcd(str(d / f"view{v:02d}.pcd"), syn_view(k, rng))
+    return root
+
+
+CPU_RUN_THREADS = 6  # the CPU comparisons' threads: two of the host's 8 cores stay with the card's process
+
+
+def detect_settings(scene, lab, views, dev):
+    """(--ranges, --exist-threshold) of phase 9's detection of box 1: its
+    extent in the scene's 4 cm subdivisions (how many of them its points
+    span in the CLI's grid), and 0.8 of its occupied voxels (the median
+    over its views).  At the default threshold of 10 voxels any box of red
+    voxels scores within ~1e-6 of 1, a sub-box above the table beats the
+    whole box by rounding, and the top box may miss the centroid (PERF.md
+    §6)."""
+    from mapping_private_tpu_torch.apps import detect_object
+    from mapping_private_tpu_torch.io.pcd import load_pcd
+
+    vs = detect_object.VOXEL_SIZE
+    block_m = DETECT_BLOCK * vs
+    origin = np.floor(scene["xyz"].min(0) / vs) * vs
+    pts = scene["xyz"][lab == 1]
+    span = np.floor((pts.max(0) - origin) / block_m) - np.floor((pts.min(0) - origin) / block_m) + 1
+    voxels = [int((detect_object._grid(load_pcd(v, device=dev))[0].count > 0).sum()) for v in views]
+    return [int(v) for v in span], 0.8 * float(np.median(voxels)), voxels
+
+
+def _cpu_runs(cmds, results):
+    """Run each command (the phase's comparisons on the CPU) in turn, on
+    CPU_RUN_THREADS threads; keep (returncode, stdout, stderr, seconds)
+    under its key."""
+    env = dict(os.environ, OMP_NUM_THREADS=str(CPU_RUN_THREADS))
+    for key, cmd in cmds:
+        t0 = time.perf_counter()
+        out = subprocess.run(cmd, cwd=REPO_ROOT, capture_output=True, text=True, timeout=900, env=env)
+        results[key] = (out.returncode, out.stdout, out.stderr, time.perf_counter() - t0)
+
+
+def _score_at(sdata, axis_q, det, origin, exist_threshold):
+    """The similarity that search_object gives the box of detection ``det``
+    (its mode's extent, its origin in the scene's subdivisions)."""
+    import torch
+
+    from mapping_private_tpu_torch.apps.detect_object import VOXEL_SIZE
+    from mapping_private_tpu_torch.recognition.search import _mode_scores
+
+    block_m = DETECT_BLOCK * VOXEL_SIZE
+    lo, hi = np.asarray(det["box_min"]), np.asarray(det["box_max"])
+    r = [int(v) for v in np.round((hi - lo) / block_m)]
+    at = tuple(int(v) for v in np.round((lo - origin) / block_m))
+    aq = torch.as_tensor(axis_q, dtype=torch.float32, device=sdata.int_feat.device)
+    return float(_mode_scores(sdata.int_feat, sdata.int_exist, *r, aq, exist_threshold)[at])
+
+
+def _box_key(d):
+    return (d["mode"], tuple(round(v, 6) for v in d["box_min"]), tuple(round(v, 6) for v in d["box_max"]))
+
+
+def phase_recognition(torch, dev, smi: str, seed: int):
+    """Phase 9: the detect_object CLI on phase 7's frame at 1 cm voxels, the
+    classification protocols on the committed corpus features, and the
+    classify CLI on a synthetic corpus; the CPU comparisons run alongside."""
+    import threading
+    import warnings
+
+    from mapping_private_tpu_torch.apps import detect_object
+    from mapping_private_tpu_torch.classify.evaluate import crossval_svm, leave_one_out_subspace
+    from mapping_private_tpu_torch.features import colorchlac117_subdiv, occupied_count_subdiv
+    from mapping_private_tpu_torch.io.pcd import load_pcd, save_pcd
+    from mapping_private_tpu_torch.recognition import build_scene_data, read_pca, search_object, subspace_axis
+
+    t_phase = time.perf_counter()
+    module = [sys.executable, "-m"]
+    with tempfile.TemporaryDirectory() as td:
+        scene, truth, lab = coloured_frame(seed)
+        paths = {"scene": f"{td}/scene.pcd"}
+        save_pcd(paths["scene"], scene)
+        for k in (1, 2):
+            paths[f"env{k}"] = f"{td}/env{k}.pcd"
+            save_pcd(paths[f"env{k}"], coloured_frame(seed + k)[0])
+        views, view_rows = [f"{td}/box1_view{k}.pcd" for k in range(5)], []
+        for k, path in enumerate(views):
+            view = box_view(seed + 10 + k, turn=k >= 3)
+            save_pcd(path, view)
+            view_rows.append(len(view["xyz"]))
+        corpus = write_syn_corpus(f"{td}/corpus", seed)
+        thr, scene_pca, obj_pca = f"{td}/color_threshold.txt", f"{td}/scene.pca", f"{td}/box1.pca"
+        span, exist_thr, obj_voxels = detect_settings(scene, lab, views, dev)
+        ranges = [str(v) for v in span]
+        centroid = np.asarray(truth[0][1])
+        print(f"phase 9 files: a {N_TABLE}-point coloured frame, 2 more for the scene PCA, 5 views of box 1 "
+              f"({view_rows} points), a corpus of {len(SYN_OBJECTS)} objects x "
+              f"{N_SYN_VIEWS} views of {N_SYN_POINTS} points; written in {time.perf_counter() - t_phase:.2f} s",
+              flush=True)
+
+        # learning, on the card through the CLI's entry point
+        for argv in (["learn-threshold", paths["scene"], "--out", thr],
+                     ["learn-scene", paths["env1"], paths["env2"], "--out", scene_pca, "--block-size",
+                      str(DETECT_BLOCK), "--color-threshold", thr],
+                     ["learn-object", *views, "--out", obj_pca, "--color-threshold", thr]):
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                rc = detect_object.main(argv + ["--device", "cuda"])
+            print(f"detect_object {argv[0]}: rc {rc}, {time.perf_counter() - t0:.2f} s wall; "
+                  f"{buf.getvalue().strip()}", flush=True)
+            if rc != 0:
+                fail(f"detect_object {argv[0]} returned {rc}")
+
+        def detect_cmd(with_pca: bool, device: str):
+            return module + ["mapping_private_tpu_torch.apps.detect_object", "detect", paths["scene"], "--object-pca",
+                             obj_pca, "--ranges", *ranges, "--block-size", str(DETECT_BLOCK), "--color-threshold",
+                             thr, "--exist-threshold", str(exist_thr)] + (
+                                 ["--scene-pca", scene_pca] if with_pca else []) + ["--device", device]
+
+        classify_cmd = module + ["mapping_private_tpu_torch.apps.classify", "rate", "--data-dir", corpus,
+                                 "--feature", "r", "--leave-one-out", "--json", "--device"]
+        cpu = {}
+        cpu_thread = threading.Thread(target=_cpu_runs, args=(
+            [("detect", detect_cmd(False, "cpu")), ("detect+scene-pca", detect_cmd(True, "cpu")),
+             ("classify", classify_cmd + ["cpu"])], cpu))
+        cpu_thread.start()
+
+        card = {}
+        for with_pca in (False, True):
+            key = "detect+scene-pca" if with_pca else "detect"
+            t0 = time.perf_counter()
+            out = subprocess.run(detect_cmd(with_pca, "cuda"), cwd=REPO_ROOT, capture_output=True, text=True,
+                                 timeout=900)
+            cli_s = time.perf_counter() - t0
+            if out.returncode != 0:
+                fail(f"{key}: rc {out.returncode}: {out.stderr[-2000:]}")
+            dets = card[key] = json.loads(out.stdout.strip().splitlines()[-1])
+            top = dets[0] if dets else None
+            inside = top is not None and bool(np.all(np.asarray(top["box_min"]) <= centroid)
+                                               and np.all(centroid <= np.asarray(top["box_max"])))
+            print(f"detect_object {key} (python -m, --device cuda, ranges {ranges}, block {DETECT_BLOCK}, exist "
+                  f"threshold {exist_thr:.1f} = 0.8 x the median of box 1's views' {obj_voxels} voxels): "
+                  f"{cli_s:.2f} s wall (process start included) [{smi}]; top-5 scores "
+                  f"{[round(d['score'], 7) for d in dets]}; top box {top and top['box_min']} - "
+                  f"{top and top['box_max']} (mode {top and top['mode']}); box 1's centroid "
+                  f"{np.round(centroid, 4).tolist()} inside: {inside}", flush=True)
+            if not inside:
+                fail(f"{key}: the top detection's box does not contain the red box's centroid")
+
+        # warm stage times and peak memory of the detect path, in process
+        cloud = load_pcd(paths["scene"], device=dev)
+        colour_thr = detect_object.read_color_threshold(thr)
+        grid_ms, (grid, origin, dims) = _wall(lambda: detect_object._grid(cloud), torch)
+        feat_ms, sub = _wall(lambda: colorchlac117_subdiv(grid, DETECT_BLOCK, thresholds=colour_thr), torch)
+        exist = occupied_count_subdiv(grid, DETECT_BLOCK)
+        axis = subspace_axis(read_pca(scene_pca), 50)
+        sat_ms, sdata = _wall(lambda: build_scene_data(sub, exist, scene_axis=axis), torch)
+        aq_raw = subspace_axis(read_pca(obj_pca), 5)
+        aq = aq_raw @ axis.T
+        aq = aq / np.maximum(np.linalg.norm(aq, axis=1, keepdims=True), 1e-12)
+        search_ms, _ = _wall(lambda: search_object(sdata, aq, [int(r) for r in ranges], exist_threshold=exist_thr),
+                             torch)
+        if not (sub.device.type == sdata.int_feat.device.type == dev.type):
+            fail("the detect path left the card")
+        # each run's scene tables and subspace, to score any box on the card
+        scored = {"detect": (build_scene_data(sub, exist), aq_raw), "detect+scene-pca": (sdata, aq)}
+        del sub
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        det_ms, _ = _wall(lambda: detect_object.detect(paths["scene"], obj_pca, [int(r) for r in ranges],
+                                                       DETECT_BLOCK, 50, 5, scene_pca, exist_threshold=exist_thr,
+                                                       color_threshold=thr, device=dev), torch, turns=2)
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+        print(f"detect path, warm wall [{smi}]: voxelize (the CLI's grid, {dims[0]} x {dims[1]} x {dims[2]} = "
+              f"{int(np.prod(dims))} voxels) {grid_ms:.2f} ms, colorchlac117_subdiv ({tuple(exist.shape)} blocks) "
+              f"{feat_ms:.2f} ms, build_scene_data (scene axis 50) {sat_ms:.2f} ms, search_object {search_ms:.2f} "
+              f"ms; detect() whole with the PCD load {det_ms:.2f} ms; peak device memory {peak:.1f} MiB above the "
+              f"{base / 2**20:.1f} MiB before", flush=True)
+
+        # classification on the committed corpus features, on the card
+        z = np.load(CORPUS_NPZ, allow_pickle=True)
+        L, names = z["labels"], list(z["names"])
+        for ft, gate in (("r", lambda r: r > 0.85), ("g", lambda r: 0.25 < r < 0.75)):
+            t0 = time.perf_counter()
+            res = leave_one_out_subspace(z[f"features_{ft}"], L, names, ft, device=dev)
+            torch.cuda.synchronize()
+            print(f"leave_one_out_subspace {ft}: {res.n_correct}/{res.n_total} = {res.rate:.4f} (JAX package "
+                  f"{JAX_CORPUS_CORRECT[ft]}/1512, EVALUATION.md); {time.perf_counter() - t0:.2f} s wall "
+                  f"(first call) [{smi}]", flush=True)
+            if not gate(res.rate):
+                fail(f"leave_one_out_subspace {ft}: rate {res.rate} outside tests/test_evaluation.py's gate")
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            t0 = time.perf_counter()
+            res = crossval_svm(z["features_r"], L, names, n_folds=4, device=dev)
+            svm_s = time.perf_counter() - t0
+        hit = [str(w.message) for w in caught if "max_iter" in str(w.message)]
+        print(f"crossval_svm r, 4 folds: {res.n_correct}/{res.n_total} = {res.rate:.4f} (JAX package "
+              f"{JAX_CORPUS_CORRECT['svm r']}/1512, EVALUATION.md); {svm_s:.2f} s wall "
+              f"[{smi}]; train_svc_ovo warned of max_iter: {bool(hit)}{(' - ' + hit[0]) if hit else ''}", flush=True)
+        if not res.rate > 0.80:
+            fail(f"crossval_svm r: rate {res.rate} <= 0.80")
+
+        # the classify CLI on the synthetic corpus, on the card
+        t0 = time.perf_counter()
+        out = subprocess.run(classify_cmd + ["cuda"], cwd=REPO_ROOT, capture_output=True, text=True, timeout=900)
+        cls_s = time.perf_counter() - t0
+        if out.returncode != 0:
+            fail(f"classify rate: rc {out.returncode}: {out.stderr[-2000:]}")
+        rate_card = json.loads(out.stdout.strip().splitlines()[-1])["rate"]
+        n_views = len(SYN_OBJECTS) * N_SYN_VIEWS
+        print(f"classify rate --leave-one-out --feature r --device cuda (python -m), {len(SYN_OBJECTS)} objects x "
+              f"{N_SYN_VIEWS} views: rate {rate_card:.4f} ({round(rate_card * n_views)}/{n_views}); {cls_s:.2f} s "
+              f"wall [{smi}]", flush=True)
+        if rate_card < 0.9:
+            fail(f"classify rate {rate_card} < 0.9")
+
+        t0 = time.perf_counter()
+        cpu_thread.join()
+        waited = time.perf_counter() - t0
+        for key in ("detect", "detect+scene-pca", "classify"):
+            if key not in cpu or cpu[key][0] != 0:
+                fail(f"the CPU run of {key} failed: {cpu.get(key, (None, '', 'not run'))[2][-2000:]}")
+        for key in ("detect", "detect+scene-pca"):
+            mine = json.loads(cpu[key][1].strip().splitlines()[-1])
+            diff = [abs(a["score"] - b["score"]) for a, b in zip(card[key], mine)]
+            ties = []
+            for rank, (a, b) in enumerate(zip(card[key], mine)):
+                if _box_key(a) != _box_key(b):
+                    # an exact tie: two boxes that hold the same occupied
+                    # voxels (they differ by empty space), scored alike on
+                    # the card and ranked by the last bits
+                    alt = _score_at(*scored[key], b, origin, exist_thr)
+                    ties.append((rank + 1, a["score"], alt))
+            same = len(mine) == len(card[key]) and max(diff, default=0.0) < 1e-4 and all(
+                abs(s0 - s1) < 1e-4 for _, s0, s1 in ties)
+            print(f"{key} --device cpu: {cpu[key][3]:.2f} s wall; the same top-{len(mine)} boxes as the card: {same} "
+                  f"(max |score difference| {max(diff, default=float('nan')):.3g}; ranks that hold another box of "
+                  f"a tied score, with the card's scores of both: {ties})", flush=True)
+            if not same:
+                fail(f"{key}: the CPU run's top-5 boxes or scores differ from the card's: {mine} vs {card[key]}")
+        rate_cpu = json.loads(cpu["classify"][1].strip().splitlines()[-1])["rate"]
+        print(f"classify rate --device cpu: rate {rate_cpu:.4f}, {cpu['classify'][3]:.2f} s wall; |card - cpu| "
+              f"{abs(rate_card - rate_cpu) * n_views:.0f} views (bound 1); waited {waited:.2f} s for the CPU runs",
+              flush=True)
+        if abs(rate_card - rate_cpu) * n_views > 1 + 1e-9:
+            fail("classify: the CPU run's rate is more than one view from the card's")
+    print(f"phase 9: {time.perf_counter() - t_phase:.2f} s wall", flush=True)
+
+
 def main(argv=None) -> int:
     import torch
 
     ap = argparse.ArgumentParser(description="On-card smoke test of the PyTorch/CUDA port.")
     ap.add_argument("--profile", action="store_true", help="profile the paths instead of checking them")
-    ap.add_argument("--seed", type=int, default=0, help="seed of the scenes of phases 7 and 8")
+    ap.add_argument("--seed", type=int, default=0, help="seed of the scenes of phases 7, 8 and 9")
     args = ap.parse_args(sys.argv[1:] if argv is None else argv)
 
     if not torch.cuda.is_available():
@@ -1563,6 +1969,9 @@ def main(argv=None) -> int:
 
     # -- phase 8: the structural scenes ----------------------------------------
     phase_structural(torch, dev, smi, args.seed)
+
+    # -- phase 9: object recognition and classification -------------------------
+    phase_recognition(torch, dev, smi, args.seed)
 
     kernels = []
     for name, r in results.items():

@@ -7,10 +7,13 @@ torch and numpy, never jax and never ``mapping_private_tpu``.
 
 Slices ported so far: scan-to-scan registration and the mapping loop
 (``apps.icp_register``, ``apps.build_map``), tabletop perception
-(``apps.table_pipeline``, ``apps.clean_table``) and the structural-scene
-models (``apps.room_segment``, ``apps.cloud_ops``):
+(``apps.table_pipeline``, ``apps.clean_table``), the structural-scene
+models (``apps.room_segment``, ``apps.cloud_ops``) and object
+recognition and classification (``apps.detect_object``,
+``apps.classify``):
 
-core          PointCloud (fixed capacity + mask), SE(3) maps, 6×6 solve
+core          PointCloud (fixed capacity + mask), the dense VoxelGrid,
+              SE(3) maps, 6×6 solve
 io            PCD reader/writer, markers and PLY (host-side numpy)
 ops           kNN (brute force, grid hash), normals, the three 1-NN
               kernels and their front door (brute, compact tiles, dense
@@ -23,7 +26,12 @@ registration  point-to-plane ICP (dense, tiled, segmented re-bucketing),
               scan-to-map tracking, pose-graph relaxation
 models        the tabletop detectors (unordered and organized clouds),
               the table memory, room segmentation, layered reconstruction
-apps          the six CLIs, each with ``--device`` (default cuda)
+features      C3-HLAC (ColorCHLAC 117/981, per subdivision), RSD surface
+              types, GRSD/VOSCH, PFH, GFPFH, 2-D HLAC, extraction pipelines
+recognition   PCA subspaces (reference file formats), sliding-box search
+classify      libsvm models, per-class subspaces, linear and kernel SVM
+              training, the corpus evaluation protocols
+apps          the eight CLIs, each with ``--device`` (default cuda)
 csrc          hand-written CUDA C++ kernels for Hopper (sm_90a)
 """
 

@@ -1,4 +1,4 @@
-"""Typed tensors: PointCloud, SE(3) poses, small fixed-size solves."""
+"""Typed tensors: PointCloud, the dense VoxelGrid, SE(3) poses, small fixed-size solves."""
 from mapping_private_tpu_torch.core.cloud import PointCloud
 from mapping_private_tpu_torch.core.se3 import (
     se3_apply,
@@ -8,9 +8,11 @@ from mapping_private_tpu_torch.core.se3 import (
     se3_inverse,
     se3_log,
 )
+from mapping_private_tpu_torch.core.voxelgrid import VoxelGrid
 
 __all__ = [
     "PointCloud",
+    "VoxelGrid",
     "se3_exp",
     "se3_log",
     "se3_identity",

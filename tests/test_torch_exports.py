@@ -18,13 +18,16 @@ from mapping_private_tpu_torch.core import se3 as tse3
 from mapping_private_tpu_torch.io import pcd as tpcd
 
 NOT_YET_PORTED = {
-    "core": {"VoxelGrid"},
+    "core": set(),
     "io": {"write_dxf_mesh", "read_dxf_mesh", "write_vtk_mesh", "read_vtk_mesh", "sample_mesh_points",
            "virtual_view_depth", "SemanticMap", "parse_semantic_map", "corner_frame_offset", "map_to_boxes"},
     "models": {"HoughConfig", "HoughSegment", "hough_segment"},
     "ops": set(),
     "fit": set(),
     "registration": {"make_sharded_pose_graph_step"},
+    "features": set(),
+    "recognition": set(),
+    "classify": set(),
 }
 
 
@@ -49,6 +52,18 @@ def test_documented_imports():
     assert load_pcd.__module__ == "mapping_private_tpu_torch.io.pcd"
     assert detect_table.__module__ == "mapping_private_tpu_torch.models.table_detector"
     assert voxel_downsample.__module__ == "mapping_private_tpu_torch.ops.voxel"
+
+    from mapping_private_tpu_torch.classify import SVMModel, classify_subspace, train_subspaces
+    from mapping_private_tpu_torch.core import VoxelGrid
+    from mapping_private_tpu_torch.features import colorchlac117_subdiv, vosch, voxel_types
+    from mapping_private_tpu_torch.recognition import PCAResult, build_scene_data, search_object
+
+    for obj, module in ((VoxelGrid, "core.voxelgrid"), (colorchlac117_subdiv, "features.colorchlac"),
+                        (vosch, "features.rsd"), (voxel_types, "features.extract"), (PCAResult, "recognition.pca"),
+                        (build_scene_data, "recognition.search"), (search_object, "recognition.search"),
+                        (SVMModel, "classify.libsvm"), (train_subspaces, "classify.subspace"),
+                        (classify_subspace, "classify.subspace")):
+        assert obj.__module__ == f"mapping_private_tpu_torch.{module}"
 
 
 @pytest.mark.parametrize("dtype", ["float32", "float64"])
