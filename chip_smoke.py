@@ -145,16 +145,46 @@ Phases (any failure exits non-zero before the result line):
    r`` on a synthetic corpus written as PCD files (8 objects of distinct
    shape and colour, 24 views each of 2,000 points): a rate of at least
    0.9 on the card, and the CPU run's within one view of it.
+10. The sharded steps (``mapping_private_tpu_torch.parallel``), synthetic
+   from ``--seed``: the registration step on 16 pairs of 20,000 points
+   (bench.py's batch), the brute and tiled map steps (tile 0.3, 2 sweeps)
+   on a 20,000-point scan against a 1,048,576-point map of bench.py's
+   surface, and 1,024-keyframe pose-graph passes (1,087 edges, 64 loop
+   closures).  First one shard's search at the map step's shape,
+   20,000 x 1,048,576, through nn_matmul bit for bit against its plain
+   version, and its kernel time beside the bound.  Then each step twice,
+   each timed over three warm calls: (a) over NCCL at one rank a card (in
+   this process at world size 1), (b) on two gloo ranks spawned on cuda:0
+   (NCCL refuses two ranks on one card; gloo's payloads go through host
+   memory).  (b) must equal (a): correspondence counts equal, poses within
+   1e-5.  The map steps within 1e-4 of an f64 reference (the same GN
+   sweeps with a global brute NN, plain torch float64 on the card), the
+   pose graph's err after the third pass below 1e-6 (printed beside the
+   JAX dry run's 4.472e-09), nn_matmul launched by both runs.  Then
+   ``dryrun_multichip(2, "gloo", "cuda")`` once (its err below 1e-6 too).
+11. Hough segmentation: the points of phase 7's four objects (labels 1-4
+   of its frame, about 5,700), table-relative.  ``hough_segment`` (the
+   CLI's settings) and ``segment_by_voting`` on the card and on the CPU
+   with the same uniforms (numpy, from the seed): the segments match one
+   to one by kind, centroids within 1 cm; on the card
+   ``hough_eval.match_scene`` against the four true objects matches at
+   least as many, and as many with the right kind, as the JAX package
+   does on the same cloud (``scripts/hough_reference_count.py``).  Then
+   ``python -m mapping_private_tpu_torch.apps.hough_segment --json
+   --marked --by-voting --sizes-out`` on the card and with ``--device
+   cpu`` (alongside): the same segments, a marked cloud and a sizes
+   table.  Wall times of each call, each round and the CLI.
 
 ``python3 chip_smoke.py --profile`` builds the kernels and then, instead
-of phases 2-9, profiles with torch.profiler one warm pair of phase 3
+of phases 2-11, profiles with torch.profiler one warm pair of phase 3
 (normals + 20 ICP sweeps), one warm tracker step of phase 6, phase 5's
 tiled ICP call, phase 7's denoise of a frame and ``detect_table`` call,
 phase 8's ``segment_room`` and ``detect_table_sr`` calls, and phase 9's
 ``detect`` of box 1 in the coloured frame and ``leave_one_out_subspace``
-of the corpus's r features (device time by kernel, launches, the
+of the corpus's r features, phase 10's brute map step at world size 1
+and phase 11's ``hough_segment`` (device time by kernel, launches, the
 device's idle share); it prints no result line.  ``--seed N`` (default
-0) makes the scenes of phases 7, 8 and 9.
+0) makes the scenes of phases 7-11.
 
 Every launch count is set to 0 just before a path is driven and read just
 after.  Prints, before the last line, one JSON line {"kernels": [...]}
@@ -220,6 +250,19 @@ VGA_SHAPE = (480, 640)
 SR_VIEW = (-0.7, 0.0, 1.7)  # tests/test_table_detector_sr.py's oblique viewpoint
 SR_BOX = ((0.05, -0.20, 0.75), (0.45, 0.20, 0.95))  # the 20 cm box on the table at z = 0.75
 N_OUTLIERS = 1_000  # injected into phase 7's frame for the cloud_ops denoise
+N_REG_PAIRS = 16  # bench.py's BATCH_PAIRS: the sharded registration step's pairs (phase 10)
+N_MAP = 1 << 20  # the sharded map steps' map (the JAX docstring's 64k-1M points a device)
+MAP_TILE = 0.3  # the tiled map step's tile, as in the JAX dry run
+MAP_SWEEPS = 2  # the tiled map step's GN sweeps, as in the JAX dry run
+PG_KEYFRAMES = 1024  # the pose graph of the JAX dry run: E = 1,087 edges, 64 loop closures
+JAX_DRYRUN_PG_ERR = 4.472e-09  # MULTICHIP_r05.json: the JAX dry run's err after 3 passes (a CPU virtual mesh)
+SHARDED_TOL = 1e-5  # phase 10: the two-rank run against the NCCL run
+F64_TOL = 1e-4  # phase 10: the map steps against the f64 reference
+HOUGH_DRAWS = 8  # phase 11: (line, circle) uniform pairs drawn, more than any run uses
+# The JAX package's matches on phase 11's cloud (seed 0), of 4 true objects:
+# JAX_PLATFORMS=cpu python3 scripts/hough_reference_count.py --seed 0
+JAX_HOUGH_MATCHES = {"hough_segment": {"detected": 4, "kind_correct": 2},
+                     "segment_by_voting": {"detected": 4, "kind_correct": 2}}
 
 # H100 SXM: SMs x FP32 lanes; bytes/s of HBM3 (NVIDIA's data sheet)
 SM_LANES = 132 * 128
@@ -436,6 +479,30 @@ def tabletop_frame(seed: int, shift=(0.0, 0.0), labels: bool = False):
     return xyz[order].astype(np.float32), truth
 
 
+HOUGH_CFG = dict(max_objects=5, min_inliers=80)  # the hough_segment CLI's defaults (phase 11)
+
+
+def hough_cloud(seed: int):
+    """Phase 11's cloud: the points of phase 7's four objects (labels 1-4 of
+    ``tabletop_frame(seed)``), table-relative (z - TABLE_Z), and the four
+    true objects as ``hough_eval.GroundTruthObject`` fields (kind, the
+    centroid of the object's points, size, the short size class of all
+    four)."""
+    xyz, truth, lab = tabletop_frame(seed, labels=True)
+    keep = (lab >= 1) & (lab <= 4)
+    rel = (xyz[keep] - np.float32([0.0, 0.0, TABLE_Z])).astype(np.float32)
+    gts = []
+    for k, ((kind, cx, cy, size), (_, centroid)) in enumerate(zip(TABLE_OBJECTS, truth)):
+        c = np.asarray(centroid, np.float64) - [0.0, 0.0, TABLE_Z]
+        if kind == "box":
+            gts.append(dict(name=f"box{k}", kind="cuboid", centroid=c, size_class="short",
+                            extents=np.asarray(size, np.float64), height=size[2]))
+        else:
+            gts.append(dict(name=f"cylinder{k}", kind="cylinder", centroid=c, size_class="short",
+                            radius=size[0], height=size[1]))
+    return rel, gts
+
+
 def room_surfaces():
     """The room of phase 8 as named lists of axis-aligned rectangles
     (fixed axis, its value, (axis, lo, hi), (axis, lo, hi)): floor,
@@ -602,7 +669,8 @@ def profile_paths(torch, dev, smi: str, seed: int):
     frame and its detect_table call, in phase 8's segment_room of the
     room scan and detect_table_sr of the SwissRanger frame, and in phase
     9's detect of box 1 and leave-one-out protocol on the corpus's r
-    features."""
+    features, phase 10's brute map step at world size 1 and phase 11's
+    hough_segment call."""
     from mapping_private_tpu_torch.core.cloud import PointCloud
     from mapping_private_tpu_torch.core.se3 import se3_exp
     from mapping_private_tpu_torch.ops.normals import estimate_normals
@@ -687,6 +755,28 @@ def profile_paths(torch, dev, smi: str, seed: int):
     profile_call(torch, "leave_one_out_subspace r on the committed corpus features (63 objects x 24 views)",
                  lambda: leave_one_out_subspace(z["features_r"], z["labels"], list(z["names"]), "r", device=dev),
                  smi)
+
+    import torch.distributed as dist
+
+    from mapping_private_tpu_torch.models.hough_segmentation import HoughConfig, hough_segment
+    from mapping_private_tpu_torch.parallel.distributed import make_sharded_map_icp_step
+    from mapping_private_tpu_torch.parallel.mesh import make_mesh
+
+    _, maps, _ = sharded_data(seed, se3_exp, torch)
+    with tempfile.TemporaryDirectory() as td:
+        dist.init_process_group("nccl", init_method=f"file://{td}/store", world_size=1, rank=0)
+        try:
+            step, shard = make_sharded_map_icp_step(make_mesh((1,), ("mp",)))
+            args = shard(*maps)
+            profile_call(torch, f"brute map step at world size 1 (nccl): a {N_POINTS}-point scan against "
+                         f"{N_MAP} map points", lambda: step(*args), smi)
+        finally:
+            dist.destroy_process_group()
+    xyz, _ = hough_cloud(seed)
+    cloud = PointCloud.from_numpy(xyz, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    profile_call(torch, f"hough_segment (the CLI's settings) on phase 11's {len(xyz)}-point cloud",
+                 lambda: hough_segment(cloud, gen, HoughConfig(**HOUGH_CFG)), smi)
 
 
 def check_detection(det, truth, label: str):
@@ -1456,12 +1546,337 @@ def phase_recognition(torch, dev, smi: str, seed: int):
     print(f"phase 9: {time.perf_counter() - t_phase:.2f} s wall", flush=True)
 
 
+def surface_normals(xyz: np.ndarray) -> np.ndarray:
+    """Unit normals of bench.py's surface z = 0.4 sin(1.8x) + 0.3 cos(2.2y) at xyz."""
+    x, y = xyz[..., 0].astype(np.float64), xyz[..., 1].astype(np.float64)
+    n = np.stack([-0.72 * np.cos(1.8 * x), 0.66 * np.sin(2.2 * y), np.ones_like(x)], axis=-1)
+    return (n / np.linalg.norm(n, axis=-1, keepdims=True)).astype(np.float32)
+
+
+def sharded_data(seed: int, se3_exp, torch):
+    """Phase 10's inputs, from ``seed``: N_REG_PAIRS pairs of N_POINTS points
+    on bench.py's surface (each source the target seen from a pose moved by
+    a random small step, bench.py's step sizes), and a N_POINTS scan of the
+    surface seen from a known small pose against an N_MAP-point map of it.
+    Returns (registration arrays, map-step arrays, the scan's true pose)."""
+    rng = np.random.default_rng(seed + 500)
+    tgt = np.stack([surface(N_POINTS, seed + 600 + b) for b in range(N_REG_PAIRS)])
+    src = np.empty_like(tgt)
+    for b in range(N_REG_PAIRS):
+        xi = rng.uniform(-1, 1, 6) * np.array([0.05, 0.04, 0.03, 0.02, 0.02, 0.03])
+        T = se3_exp(torch.tensor(xi, dtype=torch.float32)).numpy().astype(np.float64)
+        src[b] = ((tgt[b] - T[:3, 3]) @ T[:3, :3]).astype(np.float32)
+    ones = np.ones((N_REG_PAIRS, N_POINTS), bool)
+    eye = np.tile(np.eye(4, dtype=np.float32), (N_REG_PAIRS, 1, 1))
+    reg = (src, ones, tgt, ones, surface_normals(tgt), eye)
+    map_xyz = surface(N_MAP, seed + 700)
+    T_true = se3_exp(torch.tensor([0.03, -0.02, 0.01, 0.005, -0.004, 0.01])).numpy().astype(np.float64)
+    scan = ((surface(N_POINTS, seed + 701) - T_true[:3, 3]) @ T_true[:3, :3]).astype(np.float32)
+    maps = (scan, np.ones(N_POINTS, bool), map_xyz, np.ones(N_MAP, bool), surface_normals(map_xyz),
+            np.eye(4, dtype=np.float32))
+    return reg, maps, T_true
+
+
+def sharded_jobs(reg, maps, world: int, calls: int = 3):
+    """Phase 10's four steps for ``world`` ranks, each timed over ``calls``
+    warm calls: the registration step on a (dp, sp) mesh (sp = 2 for an
+    even rank count, as in the dry run), the brute and tiled map steps on a
+    flat mesh, and PG_KEYFRAMES-keyframe pose-graph passes (feeding each
+    pass's poses to the next)."""
+    from mapping_private_tpu_torch.parallel import distributed as pd
+    from mapping_private_tpu_torch.parallel.dryrun import StepJob, loop_closure_graph
+    from mapping_private_tpu_torch.registration.pose_graph import make_sharded_pose_graph_step
+
+    sp = 2 if world % 2 == 0 else 1
+    origin, dims, cap, max_tiles = pd.size_map_lattice(maps[2], maps[3], MAP_TILE, scan_xyz=maps[0])
+    # the scan's own occupancy sizes its buckets, so no scan point spills
+    cell = np.floor((maps[0] - np.asarray(origin)) / MAP_TILE).astype(np.int64)
+    _, per_cell = np.unique((cell[:, 0] * dims[1] + cell[:, 1]) * dims[2] + cell[:, 2], return_counts=True)
+    q_cap = max(128, -(-int(per_cell.max()) // 128) * 128)
+    q_max_tiles = 1 << int(np.ceil(np.log2(len(per_cell))))
+    flat = dict(axis_sizes=(world,), axis_names=("mp",), calls=calls, warmup=True)
+    kf, edges, meas, w, _, _ = loop_closure_graph(PG_KEYFRAMES, world)
+    return {
+        "registration": StepJob(pd.make_sharded_registration_step, reg, (world // sp, sp), calls=calls, warmup=True),
+        "brute map": StepJob(pd.make_sharded_map_icp_step, maps, **flat),
+        "tiled map": StepJob(pd.make_sharded_map_icp_step_tiled, maps, kwargs=dict(
+            origin=origin, tile_size=MAP_TILE, dims=dims, cap=cap, max_tiles=max_tiles, q_cap=q_cap,
+            q_max_tiles=q_max_tiles, sweeps=MAP_SWEEPS), **flat),
+        "pose graph": StepJob(make_sharded_pose_graph_step, (kf, edges, meas, w), feed=0, **flat),
+    }
+
+
+def f64_map_steps(torch, dev, scan, map_xyz, map_nrm, sweeps: int, max_corr_dist=0.3, huber_delta=0.05,
+                  damping=1e-6):
+    """The map steps' GN sweeps from the identity in plain torch float64 on
+    the card, each with a global brute-force NN: the reference the sharded
+    map steps are held to."""
+    from mapping_private_tpu_torch.core.se3 import se3_exp
+
+    f64 = dict(dtype=torch.float64, device=dev)
+    s, m, nrm = (torch.as_tensor(a).to(**f64) for a in (scan, map_xyz, map_nrm))
+    m2 = torch.sum(m * m, dim=1)
+    T = torch.eye(4, **f64)
+    for _ in range(sweeps):
+        p = s @ T[:3, :3].T + T[:3, 3]
+        sq, idx = [], []
+        for c in range(0, len(p), 256):
+            pc = p[c : c + 256]
+            v, i = torch.min(torch.sum(pc * pc, dim=1)[:, None] + m2[None, :] - 2.0 * (pc @ m.T), dim=1)
+            sq.append(v)
+            idx.append(i)
+        sq, idx = torch.cat(sq), torch.cat(idx)
+        q, n = m[idx], nrm[idx]
+        r = torch.sum(n * (p - q), dim=1)
+        w = torch.where(r.abs() <= huber_delta, 1.0, huber_delta / r.abs().clamp_min(1e-12))
+        w = torch.where(sq <= max_corr_dist**2, w, 0.0)
+        J = torch.cat([n, torch.linalg.cross(p, n, dim=1)], dim=1)
+        H, g = J.T @ (J * w[:, None]), (J * w[:, None]).T @ r
+        T = se3_exp(-torch.linalg.solve(H + damping * torch.eye(6, **f64), g)) @ T
+    return T.cpu().numpy()
+
+
+def phase_sharded(torch, dev, smi: str, seed: int, sm_clock_hz: float, results: dict, launches: dict):
+    """Phase 10: the sharded steps, (a) over NCCL at one rank a card and (b)
+    on two gloo ranks spawned on cuda:0; the map steps against an f64
+    reference; nn_matmul at one shard's shape against its plain version."""
+    import torch.distributed as dist
+
+    from mapping_private_tpu_torch.core.se3 import se3_exp
+    from mapping_private_tpu_torch.ops import nn_matmul, nn_search
+    from mapping_private_tpu_torch.parallel.dryrun import dryrun_multichip, run_job, run_steps
+
+    t_phase = time.perf_counter()
+    reg, maps, T_true = sharded_data(seed, se3_exp, torch)
+
+    # one shard's search at the map step's shape (world size 1: the whole
+    # map), bit for bit against the plain version, then its kernel time
+    q, refs = torch.from_numpy(maps[0]).to(dev), torch.from_numpy(maps[2]).to(dev)
+    idx_k, sq_k = nn_matmul.nn_matmul(q, refs)
+    n_str = nn_search.last_stretches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    idx_p, sq_p = nn_matmul.nn_matmul_plain(q, refs)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    n_idx, n_bits = int((idx_k != idx_p).sum()), int((sq_k.view(torch.int32) != sq_p.view(torch.int32)).sum())
+    err = float((sq_k.double() - sq_p.double()).abs().max())
+    label = f"{N_POINTS}x{N_MAP}"
+    msg = (f"nn_matmul {label} (a map step's shard search): idx mismatches {n_idx}, sq bit mismatches {n_bits}, "
+           f"max|dsq| {err:.3g} (plain version once: {plain_s:.2f} s wall)")
+    print(msg, flush=True)
+    if n_idx or n_bits or not bool(torch.isfinite(sq_k).all()):
+        fail(msg)
+    results["nn_matmul"]["max_abs_err"] = max(results["nn_matmul"]["max_abs_err"], err)
+    del idx_p, sq_p
+    turns = [event_ms(torch, lambda: nn_matmul.nn_matmul(q, refs), 20) for _ in range(3)]
+    ms = statistics.median(turns)
+    b_ms, b_by, before_ms = bound_ms("nn_matmul", N_POINTS, N_MAP, 4 * (3 * N_POINTS + 3 * N_MAP + 2 * N_POINTS),
+                                     sm_clock_hz)
+    if nn_search.last_stretches != n_str:
+        fail(f"nn_matmul {label}: {n_str} stretches when checked, {nn_search.last_stretches} when timed")
+    results["nn_matmul"].setdefault("shapes", {})[label] = dict(ms=ms, bound_ms=b_ms, bound_by=b_by, stretches=n_str)
+    print(f"nn_matmul {label}: {n_str} ref stretches, kernel {ms:.4f} ms (turns {[round(x, 4) for x in turns]}), "
+          f"bound {b_ms:.4f} ms by {b_by} ({b_ms / ms:.3f} of the kernel's time [{before_ms / ms:.3f} by the earlier "
+          f"count of {SLOTS_PER_PAIR_BEFORE['nn_matmul']} slots a pair]) [{smi}]", flush=True)
+    del q, refs, idx_k, sq_k
+
+    # (a) NCCL, one rank a card: in this process at world size 1
+    world = torch.cuda.device_count()
+    jobs_a = sharded_jobs(reg, maps, world)
+    nn_matmul.launches = 0
+    if world == 1:
+        with tempfile.TemporaryDirectory() as td:
+            dist.init_process_group("nccl", init_method=f"file://{td}/store", world_size=1, rank=0)
+            try:
+                run_a = {name: run_job(job, dev) for name, job in jobs_a.items()}
+            finally:
+                dist.destroy_process_group()
+        n_launch = nn_matmul.launches
+    else:
+        per_rank = run_steps(list(jobs_a.values()), world, "nccl", "cuda", timeout=600)
+        run_a = dict(zip(jobs_a, per_rank[0]))
+        n_launch = sum(r.launches["nn_matmul"] for ranks in per_rank for r in ranks)
+    launches["nn_matmul"][f"sharded steps, nccl x{world}"] = n_launch
+    # (b) two gloo ranks on cuda:0, collectives through host memory
+    jobs_b = sharded_jobs(reg, maps, 2)
+    t0 = time.perf_counter()
+    per_rank_b = run_steps(list(jobs_b.values()), 2, "gloo", "cuda", timeout=600)
+    spawn_s = time.perf_counter() - t0
+    run_b = dict(zip(jobs_b, per_rank_b[0]))
+    n_launch_b = [sum(r.launches["nn_matmul"] for r in ranks) for ranks in per_rank_b]
+    print(f"run (a): nccl, world size {world}{' in this process' if world == 1 else ''}, nn_matmul launches "
+          f"{n_launch}; run (b): 2 gloo ranks spawned on cuda:0 (gloo has no card collectives: the port's "
+          f"collective helper copies each payload to host memory and back), {spawn_s:.2f} s wall with the "
+          f"spawn, nn_matmul launches by rank {n_launch_b}", flush=True)
+    if n_launch < 1 or min(n_launch_b) < 1:
+        fail("phase 10: the sharded steps did not launch nn_matmul")
+
+    for name in jobs_a:
+        (p_a, c_a), (p_b, c_b) = run_a[name].outputs, run_b[name].outputs
+        d = float(np.abs(p_a - p_b).max())
+        same = d <= SHARDED_TOL and (np.array_equal(c_a, c_b) if name != "pose graph" else True)
+        extra = (f"err after pass 3: (a) {float(c_a):.4g}, (b) {float(c_b):.4g} (bound 1e-6; the JAX dry run "
+                 f"{JAX_DRYRUN_PG_ERR:.4g} on a CPU virtual mesh)" if name == "pose graph"
+                 else f"correspondences (a) {np.asarray(c_a).sum()}, (b) {np.asarray(c_b).sum()}")
+        print(f"sharded {name}: wall (median of {len(run_a[name].walls)} warm calls) (a) "
+              f"{statistics.median(run_a[name].walls):.2f} ms {[round(x, 2) for x in run_a[name].walls]}, (b) "
+              f"{statistics.median(run_b[name].walls):.2f} ms {[round(x, 2) for x in run_b[name].walls]}; "
+              f"max |(a) - (b)| {d:.3g} (bound {SHARDED_TOL}); {extra} [{smi}]", flush=True)
+        if not same or not np.isfinite(p_a).all():
+            fail(f"sharded {name}: run (b) differs from run (a)")
+        if name == "pose graph" and not max(float(c_a), float(c_b)) < 1e-6:
+            fail("sharded pose graph: err after the third pass is not below 1e-6")
+
+    for name, sweeps in (("brute map", 1), ("tiled map", MAP_SWEEPS)):
+        t0 = time.perf_counter()
+        T_ref = f64_map_steps(torch, dev, maps[0], maps[2], maps[4], sweeps)
+        d = float(np.abs(run_a[name].outputs[0] - T_ref).max())
+        print(f"sharded {name}: max |T - T_f64| {d:.3g} (bound {F64_TOL}; the f64 reference, {sweeps} sweep(s) "
+              f"with a global brute NN, {time.perf_counter() - t0:.2f} s); |T - T_true|_F "
+              f"{np.linalg.norm(run_a[name].outputs[0] - T_true):.3g}", flush=True)
+        if not d <= F64_TOL:
+            fail(f"sharded {name}: more than {F64_TOL} from the f64 reference")
+
+    # one call: each call spawns its ranks anew, so no call is warm
+    t0 = time.perf_counter()
+    out = dryrun_multichip(2, "gloo", "cuda", small=False, timeout=600)
+    print(f"dryrun_multichip(2, 'gloo', 'cuda'): {time.perf_counter() - t0:.2f} s wall (its process starts "
+          f"included); {out} [{smi}]", flush=True)
+    if not out["pose_graph_err"] < 1e-6:
+        fail("dryrun_multichip: pose-graph err not below 1e-6")
+    print(f"phase 10: {time.perf_counter() - t_phase:.2f} s wall", flush=True)
+
+
+def _segment_sets_match(a, b, tol: float = 0.01) -> bool:
+    """Two lists of (kind, centroid) match one to one by kind, centroids
+    within ``tol`` (as sets: the order of rounds may differ)."""
+    if len(a) != len(b):
+        return False
+    free = list(b)
+    for kind, c in a:
+        hit = next((j for j, (k2, c2) in enumerate(free) if k2 == kind and np.linalg.norm(c - c2) < tol), None)
+        if hit is None:
+            return False
+        free.pop(hit)
+    return True
+
+
+def _cli_kinds(records):
+    out = []
+    for r in records:
+        if "cylinder" in r:
+            c = r["cylinder"]
+            out.append((r["kind"], np.array([*c["center"], 0.5 * (c["z_min"] + c["z_max"])])))
+        else:
+            out.append((r["kind"], np.asarray(r["box"]["center"])))
+    return out
+
+
+def phase_hough(torch, dev, smi: str, seed: int):
+    """Phase 11: Hough segmentation of phase 7's four objects, in this
+    process on the card and on the CPU with the same uniforms, and through
+    the hough_segment CLI on the card and with --device cpu."""
+    import threading
+
+    from mapping_private_tpu_torch.core.cloud import PointCloud
+    from mapping_private_tpu_torch.io.pcd import load_pcd_arrays, save_pcd
+    from mapping_private_tpu_torch.models import hough_eval, hough_segmentation as hs
+
+    t_phase = time.perf_counter()
+    xyz, gts = hough_cloud(seed)
+    truth = [hough_eval.GroundTruthObject(**g) for g in gts]
+    n_hyp = hs.HoughConfig().num_hypotheses
+    rng = np.random.default_rng(seed)
+    u = [(rng.random((n_hyp, 2), dtype=np.float32), rng.random((n_hyp, 3), dtype=np.float32))
+         for _ in range(HOUGH_DRAWS)]
+    cfg = hs.HoughConfig(**HOUGH_CFG)
+    with tempfile.TemporaryDirectory() as td:
+        save_pcd(f"{td}/objects.pcd", {"xyz": xyz})
+        cli = lambda d: [sys.executable, "-m", "mapping_private_tpu_torch.apps.hough_segment",  # noqa: E731
+                         f"{td}/objects.pcd", "--json", "--marked", f"{td}/marked_{d}.pcd", "--by-voting",
+                         "--sizes-out", f"{td}/sizes_{d}.txt", "--device", d]
+        cpu = {}
+        cpu_thread = threading.Thread(target=_cpu_runs, args=([("cli", cli("cpu"))], cpu))
+        cpu_thread.start()
+
+        runs = {}
+        for where, d in (("card", dev), ("cpu", torch.device("cpu"))):
+            cloud = PointCloud.from_numpy(xyz, device=d)
+            calls = {"hough_segment": lambda: hs.hough_segment(cloud, None, cfg, u=u),
+                     "segment_by_voting": lambda: hs.segment_by_voting(cloud, None, u=u)[0]}
+            for name, fn in calls.items():
+                if where == "cpu":
+                    runs[(name, where)] = fn()
+                    continue
+                fn()  # warm
+                wall, runs[(name, where)] = _wall(fn, torch)
+                rounds = []
+                orig = hs._hough_round
+
+                def timed_round(*a, **k):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    out = orig(*a, **k)
+                    torch.cuda.synchronize()
+                    rounds.append(1e3 * (time.perf_counter() - t0))
+                    return out
+
+                hs._hough_round = timed_round
+                try:
+                    fn()
+                finally:
+                    hs._hough_round = orig
+                res, _ = hough_eval.match_scene(runs[(name, where)], truth)
+                det, kind_ok = sum(r.segment is not None for r in res), sum(r.kind_correct for r in res)
+                want = JAX_HOUGH_MATCHES[name]
+                print(f"{name} on the card, {len(xyz)} points: {wall:.2f} ms wall warm (median of 3), rounds "
+                      f"{[round(x, 2) for x in rounds]} ms; segments {[(s.kind, s.num_inliers) for s in runs[(name, where)]]}"
+                      f"; true objects detected {det} (JAX {want['detected']}), with the right kind {kind_ok} "
+                      f"(JAX {want['kind_correct']}) [{smi}]", flush=True)
+                if det < want["detected"] or kind_ok < want["kind_correct"]:
+                    fail(f"{name}: fewer true objects matched than the JAX package matches")
+        for name in ("hough_segment", "segment_by_voting"):
+            a, b = ([(s.kind, hough_eval.segment_centroid(s)) for s in runs[(name, w)]] for w in ("card", "cpu"))
+            print(f"{name}: card and CPU segments match one to one (kind, centroid within 1 cm): "
+                  f"{_segment_sets_match(a, b)}", flush=True)
+            if not _segment_sets_match(a, b):
+                fail(f"{name}: the card's segments differ from the CPU's: {a} vs {b}")
+
+        t0 = time.perf_counter()
+        out = subprocess.run(cli("cuda"), cwd=REPO_ROOT, capture_output=True, text=True, timeout=900)
+        cli_s = time.perf_counter() - t0
+        if out.returncode != 0:
+            fail(f"the hough_segment CLI failed: {out.stderr[-2000:]}")
+        t0 = time.perf_counter()
+        cpu_thread.join()
+        waited = time.perf_counter() - t0
+        if cpu.get("cli", (1,))[0] != 0:
+            fail(f"the hough_segment CLI with --device cpu failed: {cpu.get('cli', (None, '', 'not run'))[2][-2000:]}")
+        recs = {"cuda": json.loads(out.stdout)[f"{td}/objects.pcd"],
+                "cpu": json.loads(cpu["cli"][1])[f"{td}/objects.pcd"]}
+        for d in ("cuda", "cpu"):
+            marked = load_pcd_arrays(f"{td}/marked_{d}.pcd")
+            sizes = open(f"{td}/sizes_{d}.txt").read().splitlines()
+            if len(marked["x"]) != len(xyz) or not set(np.unique(marked["intensity"])) <= {0.0, 2.0, 3.0, 4.0} \
+                    or len(sizes) != len(recs[d]):
+                fail(f"the hough_segment CLI ({d}) wrote a bad marked cloud or sizes table")
+        same = _segment_sets_match(_cli_kinds(recs["cuda"]), _cli_kinds(recs["cpu"]))
+        print(f"hough_segment CLI --by-voting: card {cli_s:.2f} s wall (process start included), CPU "
+              f"{cpu['cli'][3]:.2f} s alongside (waited {waited:.2f} s); segments card "
+              f"{[(r['kind'], r['num_inliers']) for r in recs['cuda']]}, CPU "
+              f"{[(r['kind'], r['num_inliers']) for r in recs['cpu']]}; match one to one: {same} [{smi}]", flush=True)
+        if not same:
+            fail("the hough_segment CLI's card and CPU segments differ")
+    print(f"phase 11: {time.perf_counter() - t_phase:.2f} s wall", flush=True)
+
+
 def main(argv=None) -> int:
     import torch
 
     ap = argparse.ArgumentParser(description="On-card smoke test of the PyTorch/CUDA port.")
     ap.add_argument("--profile", action="store_true", help="profile the paths instead of checking them")
-    ap.add_argument("--seed", type=int, default=0, help="seed of the scenes of phases 7, 8 and 9")
+    ap.add_argument("--seed", type=int, default=0, help="seed of the scenes of phases 7-11")
     args = ap.parse_args(sys.argv[1:] if argv is None else argv)
 
     if not torch.cuda.is_available():
@@ -1972,6 +2387,12 @@ def main(argv=None) -> int:
 
     # -- phase 9: object recognition and classification -------------------------
     phase_recognition(torch, dev, smi, args.seed)
+
+    # -- phase 10: the sharded steps ---------------------------------------------
+    phase_sharded(torch, dev, smi, args.seed, sm_clock_hz, results, launches)
+
+    # -- phase 11: Hough segmentation ---------------------------------------------
+    phase_hough(torch, dev, smi, args.seed)
 
     kernels = []
     for name, r in results.items():

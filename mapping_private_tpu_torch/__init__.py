@@ -8,9 +8,10 @@ torch and numpy, never jax and never ``mapping_private_tpu``.
 Slices ported so far: scan-to-scan registration and the mapping loop
 (``apps.icp_register``, ``apps.build_map``), tabletop perception
 (``apps.table_pipeline``, ``apps.clean_table``), the structural-scene
-models (``apps.room_segment``, ``apps.cloud_ops``) and object
+models (``apps.room_segment``, ``apps.cloud_ops``), object
 recognition and classification (``apps.detect_object``,
-``apps.classify``):
+``apps.classify``), the sharded steps (``parallel``) and Hough
+segmentation (``apps.hough_segment``):
 
 core          PointCloud (fixed capacity + mask), the dense VoxelGrid,
               SE(3) maps, 6×6 solve
@@ -23,15 +24,19 @@ fit           batched-hypothesis RANSAC (plane, 2-D line and circle,
               cylinder, surface of revolution, Manhattan orientation),
               oriented boxes
 registration  point-to-plane ICP (dense, tiled, segmented re-bucketing),
-              scan-to-map tracking, pose-graph relaxation
+              scan-to-map tracking, pose-graph relaxation (and its
+              edge-sharded step)
+parallel      meshes over torch.distributed ranks, sharded registration
+              and scan-to-map steps, the multi-rank dry run
 models        the tabletop detectors (unordered and organized clouds),
-              the table memory, room segmentation, layered reconstruction
+              the table memory, Hough segmentation and its evaluation,
+              room segmentation, layered reconstruction
 features      C3-HLAC (ColorCHLAC 117/981, per subdivision), RSD surface
               types, GRSD/VOSCH, PFH, GFPFH, 2-D HLAC, extraction pipelines
 recognition   PCA subspaces (reference file formats), sliding-box search
 classify      libsvm models, per-class subspaces, linear and kernel SVM
               training, the corpus evaluation protocols
-apps          the eight CLIs, each with ``--device`` (default cuda)
+apps          the nine CLIs, each with ``--device`` (default cuda)
 csrc          hand-written CUDA C++ kernels for Hopper (sm_90a)
 """
 

@@ -1,5 +1,11 @@
 """End-to-end models: the tabletop detectors (unordered and organized
-clouds), the table memory, room segmentation and layered reconstruction."""
+clouds), the table memory, Hough segmentation, room segmentation and
+layered reconstruction."""
+from mapping_private_tpu_torch.models.hough_segmentation import (
+    HoughConfig,
+    HoughSegment,
+    hough_segment,
+)
 from mapping_private_tpu_torch.models.room_segmentation import (
     RoomSegmentation,
     RoomSegmentationConfig,
@@ -26,6 +32,9 @@ __all__ = [
     "Table",
     "TableObject",
     "TableStateInstance",
+    "HoughConfig",
+    "HoughSegment",
+    "hough_segment",
     "RoomSegmentationConfig",
     "RoomSegmentation",
     "segment_room",

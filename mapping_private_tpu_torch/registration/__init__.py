@@ -8,6 +8,7 @@ from mapping_private_tpu_torch.registration.icp import (
 from mapping_private_tpu_torch.registration.pose_graph import (
     build_normal_equations,
     edge_residual,
+    make_sharded_pose_graph_step,
     optimize_pose_graph,
 )
 
@@ -18,4 +19,5 @@ __all__ = [
     "edge_residual",
     "build_normal_equations",
     "optimize_pose_graph",
+    "make_sharded_pose_graph_step",
 ]

@@ -5,8 +5,12 @@ residuals r_e = log(Z_e⁻¹ T_i⁻¹ T_j) and their Jacobians (forward mode,
 ``torch.func.jacfwd`` under ``torch.func.vmap``) for all edges at once;
 the 6K×6K normal equations assemble by scatter-adding 6×6 blocks, with
 repeated indices accumulating (self-edges, shared nodes); gauge freedom
-is fixed by a strong prior on node 0.  The edge-sharded multi-device step
-is not ported yet.
+is fixed by a strong prior on node 0.
+
+The sharded variant splits EDGES over the ranks of a mesh
+(``parallel.mesh``): each rank builds partial (H, g) from its edge
+shard, one all_reduce over every mesh axis assembles the full system,
+and every rank solves it.
 """
 from __future__ import annotations
 
@@ -16,6 +20,7 @@ import torch
 from torch.func import jacfwd, vmap
 
 from mapping_private_tpu_torch.core.se3 import se3_exp, se3_inverse, se3_log
+from mapping_private_tpu_torch.parallel.mesh import all_reduce_sum, block, shard_index, to_mesh_device
 
 
 def edge_residual(Ti: torch.Tensor, Tj: torch.Tensor, Zij: torch.Tensor) -> torch.Tensor:
@@ -96,3 +101,33 @@ def optimize_pose_graph(
         poses = _solve_and_update(poses, H, g, damping, anchor_weight)
         errs.append(err)
     return poses, torch.stack(errs)
+
+
+def make_sharded_pose_graph_step(
+    mesh,
+    damping: float = 1e-6,
+    anchor_weight: float = 1e6,
+):
+    """One GN iteration with EDGES sharded over every mesh axis.
+
+    Returns (step_fn, shard_fn).  shard_fn(poses, edges, measurements,
+    weights) cuts this rank's edge block (the first mesh axis major) and
+    replicates the poses; step_fn(...) → (poses, error), both the same on
+    every rank.  Pad the edge list to a multiple of the mesh size with
+    weight-0 self-edges (0, 0, identity)."""
+    axes = tuple(mesh.mesh_dim_names)
+
+    def step(poses, edges, measurements, weights):
+        # this rank's edge shard -> partial normal equations, summed over the mesh
+        H, g, err = build_normal_equations(poses, edges, measurements, weights)
+        for a in axes:
+            group = mesh.get_group(a)
+            H, g, err = (all_reduce_sum(t, group) for t in (H, g, err))
+        return _solve_and_update(poses, H, g, damping, anchor_weight), err
+
+    def shard(poses, edges, measurements, weights):
+        k, n = shard_index(mesh, axes)
+        return (to_mesh_device(mesh, poses),
+                *(to_mesh_device(mesh, block(a, k, n)) for a in (edges, measurements, weights)))
+
+    return step, shard

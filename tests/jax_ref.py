@@ -4,7 +4,7 @@
   samplers take the uniforms ``u`` in place of a generator; the draws do
   not depend on the mask, so feeding these makes both packages sample
   the same rows (``uniforms_from_jax``, ``detect_table_uniforms``,
-  ``layered_uniforms``).
+  ``layered_uniforms``, ``hough_uniforms``).
 - ``jit_call``: a reference function run as one jitted program, which
   compiles several times faster than the same function op by op.
 - ``one_torch_thread``: a fixture a test module imports to run its torch
@@ -68,3 +68,16 @@ def layered_uniforms(key, n_layers, num_hypotheses):
         out.append((np.asarray(jax.random.uniform(kl, (num_hypotheses, 2))),
                     np.asarray(jax.random.uniform(kc, (num_hypotheses, 3)))))
     return out
+
+
+def hough_uniforms(key, n_rounds, num_hypotheses, significant_plane=False):
+    """What ``hough_segment`` draws, in order: with ``significant_plane``
+    first ``key, sub = split(key)`` and the plane fit's (max(H, 128), 3)
+    uniforms from ``sub``, then for each round the chain of
+    ``layered_uniforms`` (a (line, circle) pair).  ``segment_by_voting``
+    draws the rounds' chain once for each cluster that votes."""
+    out = []
+    if significant_plane:
+        key, sub = jax.random.split(key)
+        out.append(np.array(jax.random.uniform(sub, (max(num_hypotheses, 128), 3))))
+    return out + [tuple(np.array(a) for a in pair) for pair in layered_uniforms(key, n_rounds, num_hypotheses)]

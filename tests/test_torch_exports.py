@@ -21,10 +21,11 @@ NOT_YET_PORTED = {
     "core": set(),
     "io": {"write_dxf_mesh", "read_dxf_mesh", "write_vtk_mesh", "read_vtk_mesh", "sample_mesh_points",
            "virtual_view_depth", "SemanticMap", "parse_semantic_map", "corner_frame_offset", "map_to_boxes"},
-    "models": {"HoughConfig", "HoughSegment", "hough_segment"},
+    "models": set(),
     "ops": set(),
     "fit": set(),
-    "registration": {"make_sharded_pose_graph_step"},
+    "registration": set(),
+    "parallel": set(),
     "features": set(),
     "recognition": set(),
     "classify": set(),
