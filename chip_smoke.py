@@ -174,17 +174,56 @@ Phases (any failure exits non-zero before the result line):
    --marked --by-voting --sizes-out`` on the card and with ``--device
    cpu`` (alongside): the same segments, a marked cloud and a sizes
    table.  Wall times of each call, each round and the CLI.
+12. The robot self-filter path (``mapping_private_tpu_torch.realtime``;
+   no NN kernel lies on it) on one Kinect VGA frame, 640 x 480 at fx = fy
+   = 525, synthetic from ``--seed``: a wall, the floor and phase 7's
+   table top as box slabs with phase 7's boxes and cylinders as meshes,
+   seen by a camera 1.3 m from the table, rendered with
+   ``render_depth_mesh`` (within 1e-4 relative of a float64 ray cast of
+   the same mesh at every pixel farther than 1 px from an edge, and
+   ``io.mesh.virtual_view_depth`` equal); a 9-link arm (prismatic,
+   revolute and fixed joints; box and cylinder primitives and a binary
+   STL finger written here and read back by ``load_stl``, 10,192
+   triangles) parsed by ``parse_urdf`` and rendered by
+   ``render_robot_depth`` reaching over the table in the lower part of
+   the view (card against the port on the CPU: hit masks differ on at
+   most 0.01% of pixels, depth within 1e-5 relative); the measured
+   frame, the nearer surface quantised to 1/8 px of disparity;
+   ``background_subtract`` (every pixel where the robot is the visible
+   surface cut, every cut pixel inside its silhouette);
+   ``smooth_depth_image`` (5 iterations, every pixel inside its clamp
+   interval, card within 1e-6 of the CPU), ``depth_to_cloud``,
+   ``fast_normals_image``; ``multi_plane_ransac`` over all 307,200 rows
+   (1,024 hypotheses, 6 planes, a 1 cm band, uniforms from numpy): the
+   wall, floor and table top each matched by a plane within 2 degrees,
+   its offset from the camera within 0.02 m, and its distance from the
+   true surface, at the centroid of that surface's pixels among its
+   inliers, within 5 mm; the CPU's planes
+   within 1e-4, labels equal on 99.9%; ``segment_normal_image`` (card
+   and CPU labels equal on 99.9%, components and sweeps printed);
+   ``boxlist_ray_intersection`` at 640 x 480 against the 50 boxes of a
+   100-entity semantic map written here (ids equal to the CPU's, depth
+   within 1e-6; the empty list misses everywhere); VTK and DXF round trips
+   of the robot mesh, ``sample_mesh_points`` on the finger (within 1e-5 m
+   of its surface), a ``Pipeline`` of voxel grid, normals and box fit
+   against the direct calls (within 1e-5 m: the voxel sums are atomic
+   adds on the card), ``cluster_objects_on_racks`` card == CPU,
+   a jlo round trip, and ``load_pcd`` of phase 7's ASCII frame through
+   the native parser (within 1 ulp of numpy's parse, both parse times).
+   First and warm wall times of each call, and the phase's stage times
+   through ``utils.metrics.Metrics``.
 
 ``python3 chip_smoke.py --profile`` builds the kernels and then, instead
-of phases 2-11, profiles with torch.profiler one warm pair of phase 3
+of phases 2-12, profiles with torch.profiler one warm pair of phase 3
 (normals + 20 ICP sweeps), one warm tracker step of phase 6, phase 5's
 tiled ICP call, phase 7's denoise of a frame and ``detect_table`` call,
 phase 8's ``segment_room`` and ``detect_table_sr`` calls, and phase 9's
 ``detect`` of box 1 in the coloured frame and ``leave_one_out_subspace``
 of the corpus's r features, phase 10's brute map step at world size 1
-and phase 11's ``hough_segment`` (device time by kernel, launches, the
-device's idle share); it prints no result line.  ``--seed N`` (default
-0) makes the scenes of phases 7-11.
+phase 11's ``hough_segment`` and phase 12's ``render_robot_depth``,
+``multi_plane_ransac`` and ``segment_normal_image`` (device time by
+kernel, launches, the device's idle share); it prints no result line.
+``--seed N`` (default 0) makes the scenes of phases 7-12.
 
 Every launch count is set to 0 just before a path is driven and read just
 after.  Prints, before the last line, one JSON line {"kernels": [...]}
@@ -669,8 +708,9 @@ def profile_paths(torch, dev, smi: str, seed: int):
     frame and its detect_table call, in phase 8's segment_room of the
     room scan and detect_table_sr of the SwissRanger frame, and in phase
     9's detect of box 1 and leave-one-out protocol on the corpus's r
-    features, phase 10's brute map step at world size 1 and phase 11's
-    hough_segment call."""
+    features, phase 10's brute map step at world size 1, phase 11's
+    hough_segment call and phase 12's render_robot_depth,
+    multi_plane_ransac and segment_normal_image calls."""
     from mapping_private_tpu_torch.core.cloud import PointCloud
     from mapping_private_tpu_torch.core.se3 import se3_exp
     from mapping_private_tpu_torch.ops.normals import estimate_normals
@@ -777,6 +817,36 @@ def profile_paths(torch, dev, smi: str, seed: int):
     gen = torch.Generator(device=dev).manual_seed(seed)
     profile_call(torch, f"hough_segment (the CLI's settings) on phase 11's {len(xyz)}-point cloud",
                  lambda: hough_segment(cloud, gen, HoughConfig(**HOUGH_CFG)), smi)
+    profile_selffilter(torch, dev, smi, seed)
+
+
+def profile_selffilter(torch, dev, smi: str, seed: int):
+    """--profile of phase 12: one warm render_robot_depth, multi_plane_ransac
+    and segment_normal_image on the phase's frame."""
+    from mapping_private_tpu_torch.realtime import depth as rd, render as rr, segmentation as rs, urdf
+
+    h, w = VGA_SHAPE
+    cam = look_at(*SF_CAMERA)
+    with tempfile.TemporaryDirectory() as td:
+        robot, cam_root, _ = selffilter_robot(td, cam)
+        render = lambda: urdf.render_robot_depth(robot, cam_root, (h, w), fx=KINECT_F, fy=KINECT_F,  # noqa: E731
+                                                 joint_values=SF_JOINTS, device=dev)
+        profile_call(torch, f"render_robot_depth: phase 12's robot at {w} x {h}", render, smi)
+        robot_d = render()
+    sv, st, _ = selffilter_scene()
+    scene = rr.render_depth_mesh(torch.from_numpy(sv).to(dev), torch.from_numpy(st).to(dev), (h, w), fx=KINECT_F,
+                                 fy=KINECT_F, pose=torch.from_numpy(cam.astype(np.float32)).to(dev))
+    meas = torch.from_numpy(measured_frame(robot_d, scene.cpu().numpy())[0]).to(dev)
+    keep = rd.background_subtract(meas, torch.from_numpy(robot_d).to(dev), threshold=0.05)
+    pts, valid = rd.depth_to_cloud(rd.smooth_depth_image(torch.where(keep, meas, 0.0)), fx=KINECT_F, fy=KINECT_F)
+    nimg = rs.fast_normals_image(pts, valid)
+    mask = valid & (torch.linalg.vector_norm(nimg, dim=-1) > 0.5)
+    u = torch.from_numpy(np.random.default_rng(seed).random((SF_PLANES, SF_HYPOTHESES), dtype=np.float32)).to(dev)
+    profile_call(torch, f"multi_plane_ransac: {h * w} rows, {SF_HYPOTHESES} hypotheses, {SF_PLANES} planes",
+                 lambda: rs.multi_plane_ransac(pts.reshape(-1, 3), nimg.reshape(-1, 3), mask.reshape(-1), None,
+                                               num_hypotheses=SF_HYPOTHESES, max_planes=SF_PLANES,
+                                               threshold=SF_THRESHOLD, u=u), smi)
+    profile_call(torch, f"segment_normal_image: {w} x {h}", lambda: rs.segment_normal_image(nimg, mask), smi)
 
 
 def check_detection(det, truth, label: str):
@@ -1871,12 +1941,566 @@ def phase_hough(torch, dev, smi: str, seed: int):
     print(f"phase 11: {time.perf_counter() - t_phase:.2f} s wall", flush=True)
 
 
+KINECT_F = 525.0  # render_robot_depth's focal length (px), both axes (phase 12)
+KINECT_BF = 0.075 * 580.0  # Kinect baseline (m) x focal length (px)
+SF_CAMERA = ((-1.0, 0.0, 1.6), (0.2, 0.0, 0.5))  # the Kinect's position and the point it looks at (world)
+SF_ROOT = (-0.85, -0.7, 0.0, np.pi / 3)  # the robot's root in the world: x, y, z, yaw
+SF_JOINTS = {"torso_lift": 0.05, "shoulder_pan": 0.12, "shoulder_lift": 0.45, "elbow_flex": -0.35,
+             "wrist_roll": 0.6}
+SF_FINGER = (100, 24)  # the STL finger's tessellation: segments around, rings along (5,000 triangles)
+SF_HYPOTHESES, SF_PLANES = 1024, 6
+SF_THRESHOLD = 0.01  # the planes' inlier band (m): at 2-3 cm the best planes tilt 1.7-2.3 degrees (scripts/selffilter_planes.py)
+SF_PLANE_TOL = (2.0, 0.02, 0.005)  # normal (degrees), offset from the camera (m), distance from the surface (m)
+N_MAP_HANDLES = 40  # handles of the semantic map; with 3 walls and 7 counters, 50 boxes
+
+
+def look_at(eye, target) -> np.ndarray:
+    """World -> camera (x right, y down, z forward) for a camera at ``eye``
+    looking at ``target`` with the world's +z up."""
+    eye, target = np.asarray(eye, np.float64), np.asarray(target, np.float64)
+    z = target - eye
+    z /= np.linalg.norm(z)
+    x = np.cross(z, [0.0, 0.0, 1.0])
+    x /= np.linalg.norm(x)
+    y = np.cross(z, x)
+    T = np.eye(4)
+    T[:3, :3] = np.stack([x, y, z])
+    T[:3, 3] = -T[:3, :3] @ eye
+    return T
+
+
+def selffilter_scene():
+    """Phase 12's scene in the world frame: a wall (x = 0.65, 5 cm behind the
+    table), the floor (z = 0) and phase 7's table top (z = 0.75) as box
+    slabs, phase 7's two boxes and two cylinders as meshes.  Returns (vertices, triangles, the
+    three planes (name, unit normal, offset) with n . p + d = 0)."""
+    from mapping_private_tpu_torch.fit.box import box_mesh
+    from mapping_private_tpu_torch.fit.cylinder import cylinder_mesh
+
+    parts = [box_mesh((0.67, 0.0, 1.0), np.eye(3), (0.04, 3.0, 2.0)),
+             box_mesh((0.0, 0.0, -0.02), np.eye(3), (3.0, 3.0, 0.04)),
+             box_mesh((0.0, 0.0, TABLE_Z - 0.02), np.eye(3), (2 * TABLE_HALF[0], 2 * TABLE_HALF[1], 0.04))]
+    for kind, cx, cy, size in TABLE_OBJECTS:
+        if kind == "box":
+            parts.append(box_mesh((cx, cy, TABLE_Z + size[2] / 2), np.eye(3), size))
+        else:
+            parts.append(cylinder_mesh((cx, cy, TABLE_Z), (0.0, 0.0, 1.0), size[0], 0.0, size[1]))
+    verts, tris, off = [], [], 0
+    for v, t in parts:
+        verts.append(v)
+        tris.append(t + off)
+        off += len(v)
+    planes = [("wall", (1.0, 0.0, 0.0), -0.65), ("floor", (0.0, 0.0, 1.0), 0.0), ("table top", (0.0, 0.0, 1.0), -TABLE_Z)]
+    return np.concatenate(verts).astype(np.float32), np.concatenate(tris).astype(np.int32), planes
+
+
+def finger_triangles(segments: int, rings: int) -> np.ndarray:
+    """A tessellated gripper finger along +x: a tapered, slightly bent tube
+    0.09 m long with end caps, (2 segments (rings + 1), 3, 3) float32."""
+    a = 2 * np.pi * np.arange(segments + 1) / segments
+    s = np.linspace(0.0, 1.0, rings + 1)
+    r, bend = 0.012 - 0.006 * s, 0.01 * s * s
+    ring = np.stack([np.broadcast_to(0.09 * s[:, None], (rings + 1, segments + 1)),
+                     r[:, None] * np.cos(a)[None] + bend[:, None], r[:, None] * np.sin(a)[None]], -1)
+    tris = []
+    for k in range(rings):
+        for i in range(segments):
+            tris += [[ring[k, i], ring[k, i + 1], ring[k + 1, i]], [ring[k, i + 1], ring[k + 1, i + 1], ring[k + 1, i]]]
+    for k in (0, rings):
+        centre = [0.09 * s[k], bend[k], 0.0]
+        for i in range(segments):
+            tris.append([centre, ring[k, i + 1], ring[k, i]])
+    return np.asarray(tris, np.float32)
+
+
+def write_binary_stl(path: str, tris: np.ndarray) -> None:
+    import struct
+
+    with open(path, "wb") as fp:
+        fp.write(b"\0" * 80 + struct.pack("<I", len(tris)))
+        rec = np.zeros(len(tris), dtype=[("n", "<f4", 3), ("v", "<f4", (3, 3)), ("attr", "<u2")])
+        rec["v"] = tris
+        fp.write(rec.tobytes())
+
+
+SF_URDF = """<robot name="tabletop_arm">
+  <link name="base_link">
+    <collision><origin xyz="0 0 0.15"/><geometry><box size="0.5 0.5 0.3"/></geometry></collision>
+  </link>
+  <link name="torso_link">
+    <collision><origin xyz="0 0 0.35"/><geometry><cylinder radius="0.12" length="0.7"/></geometry></collision>
+  </link>
+  <link name="shoulder_pan_link">
+    <collision><origin xyz="0 0 0.06"/><geometry><box size="0.14 0.14 0.12"/></geometry></collision>
+  </link>
+  <link name="upper_arm_link">
+    <collision><origin xyz="0.17 0 0" rpy="0 1.5707963 0"/>
+      <geometry><cylinder radius="0.05" length="0.34"/></geometry></collision>
+  </link>
+  <link name="forearm_link">
+    <collision><origin xyz="0.15 0 0" rpy="0 1.5707963 0"/>
+      <geometry><cylinder radius="0.04" length="0.3"/></geometry></collision>
+  </link>
+  <link name="wrist_link">
+    <collision><origin xyz="0.03 0 0"/><geometry><box size="0.06 0.08 0.08"/></geometry></collision>
+  </link>
+  <link name="palm_link">
+    <collision><origin xyz="0.02 0 0"/><geometry><box size="0.04 0.12 0.05"/></geometry></collision>
+  </link>
+  <link name="left_finger_link">
+    <collision><geometry><mesh filename="package://meshes/finger.stl"/></geometry></collision>
+  </link>
+  <link name="right_finger_link">
+    <collision><geometry><mesh filename="package://meshes/finger.stl" scale="1 -1 1"/></geometry></collision>
+  </link>
+  <joint name="torso_lift" type="prismatic">
+    <parent link="base_link"/><child link="torso_link"/><origin xyz="0 0 0.3"/><axis xyz="0 0 1"/>
+  </joint>
+  <joint name="shoulder_pan" type="revolute">
+    <parent link="torso_link"/><child link="shoulder_pan_link"/><origin xyz="0.05 0 0.7"/><axis xyz="0 0 1"/>
+  </joint>
+  <joint name="shoulder_lift" type="revolute">
+    <parent link="shoulder_pan_link"/><child link="upper_arm_link"/><origin xyz="0 0 0.06"/><axis xyz="0 1 0"/>
+  </joint>
+  <joint name="elbow_flex" type="revolute">
+    <parent link="upper_arm_link"/><child link="forearm_link"/><origin xyz="0.34 0 0"/><axis xyz="0 1 0"/>
+  </joint>
+  <joint name="wrist_roll" type="revolute">
+    <parent link="forearm_link"/><child link="wrist_link"/><origin xyz="0.3 0 0"/><axis xyz="1 0 0"/>
+  </joint>
+  <joint name="palm_fixed" type="fixed">
+    <parent link="wrist_link"/><child link="palm_link"/><origin xyz="0.06 0 0"/>
+  </joint>
+  <joint name="left_finger_fixed" type="fixed">
+    <parent link="palm_link"/><child link="left_finger_link"/><origin xyz="0.04 0.04 0" rpy="0 0 -0.1"/>
+  </joint>
+  <joint name="right_finger_fixed" type="fixed">
+    <parent link="palm_link"/><child link="right_finger_link"/><origin xyz="0.04 -0.04 0" rpy="0 0 0.1"/>
+  </joint>
+</robot>
+"""
+
+
+def root_pose() -> np.ndarray:
+    x, y, z, yaw = SF_ROOT
+    T = np.eye(4)
+    T[:3, :3] = [[np.cos(yaw), -np.sin(yaw), 0], [np.sin(yaw), np.cos(yaw), 0], [0, 0, 1]]
+    T[:3, 3] = [x, y, z]
+    return T
+
+
+def raycast_f64(verts_cam: np.ndarray, tris: np.ndarray, shape, f: float):
+    """The analytic depth of a mesh seen from the origin: each pixel's ray
+    (u - cx, v - cy, f) / f against every triangle (Moller-Trumbore in
+    float64), the nearest hit beyond 0.1 m.  Returns (depth, 0 for a miss;
+    face id of the hit, -1 for a miss; a face is a pair of triangles, one
+    quad of a box or of a cylinder's side)."""
+    h, w = shape
+    v_, u_ = np.mgrid[0:h, 0:w].astype(np.float64)
+    d = np.stack([(u_ - (w - 1) / 2) / f, (v_ - (h - 1) / 2) / f, np.ones_like(u_)], -1).reshape(-1, 3)
+    best = np.full(h * w, np.inf)
+    face = np.full(h * w, -1)
+    p = verts_cam.astype(np.float64)
+    for k, (a, b, c) in enumerate(p[tris]):
+        e1, e2 = b - a, c - a
+        pvec = np.cross(d, e2)
+        det = pvec @ e1
+        with np.errstate(divide="ignore", invalid="ignore"):
+            inv = 1.0 / det
+            tvec = -a
+            uu = (pvec @ tvec) * inv
+            q = np.cross(tvec, e1)
+            vv = (d @ q) * inv
+            t = (q @ e2) * inv
+        hit = (uu >= 0) & (vv >= 0) & (uu + vv <= 1) & (t > 0.1) & (t < best) & np.isfinite(t)
+        best[hit] = t[hit]
+        face[hit] = k // 2
+    depth = np.where(np.isfinite(best), best, 0.0)
+    return depth.reshape(h, w), face.reshape(h, w)
+
+
+def away_from_edges(face: np.ndarray) -> np.ndarray:
+    """Pixels whose eight neighbours all show the same face: farther than
+    1 px from a silhouette or crease edge."""
+    ok = np.ones(face.shape, bool)
+    pad = np.pad(face, 1, mode="edge")
+    h, w = face.shape
+    for dy in (-1, 0, 1):
+        for dx in (-1, 0, 1):
+            ok &= pad[1 + dy:1 + dy + h, 1 + dx:1 + dx + w] == face
+    return ok
+
+
+def semantic_map_xml(path: str, seed: int) -> None:
+    """A kitchen in the reference's SemanticMap XML layout, in a frame
+    whose +z runs away from the map's viewpoint (phase 12's ray grid):
+    3 walls, 7 counters and shelves, N_MAP_HANDLES handles on cabinet
+    fronts, as many knobs and 10 candidates (the knobs and candidates are
+    not boxed by map_to_boxes)."""
+    rng = np.random.default_rng(seed)
+    fmt = lambda a: " ".join(f"{x:.4f}" for x in a)  # noqa: E731
+    ents = []
+    for k, (lo, hi) in enumerate((((-2.5, -1.5, 5.0), (2.5, 1.5, 5.02)), ((-2.52, -1.5, 0.5), (-2.5, 1.5, 5.0)),
+                                  ((2.5, -1.5, 0.5), (2.52, 1.5, 5.0)))):
+        ents.append(f'<wall name="wall-{k}" id="{k + 1}"><model>0 0 1 0</model><minD>{fmt(lo)}</minD>'
+                    f'<maxD>{fmt(hi)}</maxD></wall>')
+    for k in range(7):
+        y, z0 = 1.0 - 0.35 * k, 3.5 + 0.2 * (k % 3)
+        ents.append(f'<horizontal name="counter-{k}" id="{10 + k}"><model>0 1 0 {-y:.2f}</model>'
+                    f'<minD>{fmt((-2.4 + 0.3 * k, y, z0))}</minD><maxD>{fmt((-0.8 + 0.5 * k, y, z0 + 1.2))}</maxD>'
+                    f'</horizontal>')
+    for k in range(N_MAP_HANDLES):
+        c = (rng.uniform(-2.3, 2.3), rng.uniform(-1.3, 1.3), rng.uniform(3.0, 4.9))
+        door = 100 + 3 * k
+        ents.append(f'<handle name="handle-{k}" id="{door + 1}"><center>{fmt(c)}</center>'
+                    f'<elongation>{fmt(rng.uniform(0.01, 0.12, 3))}</elongation><doorID>{door}</doorID></handle>')
+        ents.append(f'<knob name="knob-{k}" id="{door + 2}"><center>{fmt(c)}</center><radius>0.02</radius>'
+                    f'<doorID>{door}</doorID></knob>')
+    for k in range(10):
+        pts = "".join(f"<point>{fmt(rng.uniform(-2, 2, 3))}</point>" for _ in range(4))
+        ents.append(f'<candidate name="drawer-{k}" id="{1000 + k}" type="1" typename="drawer"><wallID>1</wallID>'
+                    f'<face side="front">{pts}</face></candidate>')
+    with open(path, "w") as fp:
+        fp.write("<SemanticMap>\n" + "\n".join(ents) + "\n</SemanticMap>\n")
+
+
+def rack_cloud(seed: int):
+    """Phase 12's shelf rack: three 1 m boards at 0.4, 0.9 and 1.4 m with
+    2, 3 and 1 objects on them, 2,000 points a board."""
+    rng = np.random.default_rng(seed)
+    parts = []
+    for h, xs in zip((0.4, 0.9, 1.4), ((0.2, 0.6), (0.15, 0.45, 0.8), (0.5,))):
+        parts.append(np.column_stack([rng.uniform(0, 1, 2000), rng.uniform(0, 0.4, 2000), np.full(2000, h)]))
+        for x in xs:
+            size = rng.uniform(0.05, 0.1, 3)
+            parts.append(np.column_stack([rng.uniform(x - size[0] / 2, x + size[0] / 2, 600),
+                                          rng.uniform(0.2 - size[1] / 2, 0.2 + size[1] / 2, 600),
+                                          h + rng.uniform(0.01, size[2] + 0.01, 600)]))
+    return np.concatenate(parts).astype(np.float32)
+
+
+def selffilter_robot(td: str, cam: np.ndarray):
+    """Write the finger STL under ``td``, parse SF_URDF against it; returns
+    (robot, root -> camera transform, the finger's triangles)."""
+    from mapping_private_tpu_torch.realtime import urdf
+
+    os.makedirs(f"{td}/meshes", exist_ok=True)
+    finger = finger_triangles(*SF_FINGER)
+    write_binary_stl(f"{td}/meshes/finger.stl", finger)
+    return urdf.parse_urdf(SF_URDF, mesh_root=td), cam @ root_pose(), finger
+
+
+def measured_frame(robot_d: np.ndarray, scene: np.ndarray):
+    """The Kinect frame: the nearer of robot and scene, quantised to 1/8 px
+    of disparity; returns (depth float32, 0 where nothing is seen; the
+    pixels where the robot is the visible surface)."""
+    near = np.where((robot_d > 0) & ((robot_d < scene) | (scene == 0)), robot_d, scene).astype(np.float64)
+    with np.errstate(divide="ignore"):
+        disp = np.round(KINECT_BF / near * 8) / 8
+        meas = np.where(near > 0, KINECT_BF / disp, 0.0).astype(np.float32)
+    return meas, (robot_d > 0) & (near == robot_d)
+
+
+def _first_and_warm(fn, torch):
+    """(first call's wall ms, median warm wall ms of 3, last result), each
+    call ending in a sync."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    first = 1e3 * (time.perf_counter() - t0)
+    warm, out = _wall(fn, torch)
+    return first, warm, out
+
+
+def phase_selffilter(torch, dev, smi: str, seed: int):
+    """Phase 12: the robot self-filter path at full width (one Kinect VGA
+    frame): scene and robot rendered, the robot's pixels cut, the rest
+    smoothed, unprojected, split into planes and segments; rays against a
+    semantic map's boxes; the host layers on the same data."""
+    from mapping_private_tpu_torch.core.cloud import PointCloud
+    from mapping_private_tpu_torch.integration import JloRegistry, cluster_objects_on_racks
+    from mapping_private_tpu_torch.io import dxf, mesh, pcd, semantic_map
+    from mapping_private_tpu_torch.native import loader as native
+    from mapping_private_tpu_torch.ops.normals import estimate_normals
+    from mapping_private_tpu_torch.ops.voxel import voxel_downsample
+    from mapping_private_tpu_torch.fit.box import fit_box_zup
+    from mapping_private_tpu_torch.pipeline import Pipeline, Stage
+    from mapping_private_tpu_torch.realtime import depth as rd, render as rr, segmentation as rs, urdf
+    from mapping_private_tpu_torch.utils.metrics import Metrics
+
+    t_phase = time.perf_counter()
+    cpu = torch.device("cpu")
+    h, w = VGA_SHAPE
+    f = KINECT_F
+    cam = look_at(*SF_CAMERA)
+    metrics = Metrics()
+    times = {}
+    with tempfile.TemporaryDirectory() as td:
+        # -- 1. the scene ---------------------------------------------------
+        sv, st, planes = selffilter_scene()
+        sv_cam = (sv.astype(np.float64) @ cam[:3, :3].T + cam[:3, 3]).astype(np.float32)
+        sv_t, st_t = torch.from_numpy(sv).to(dev), torch.from_numpy(st).to(dev)
+        pose = torch.from_numpy(cam.astype(np.float32)).to(dev)
+        times["render_depth_mesh"] = _first_and_warm(
+            lambda: rr.render_depth_mesh(sv_t, st_t, (h, w), fx=f, fy=f, pose=pose), torch)
+        scene = times["render_depth_mesh"][2].cpu().numpy()
+        view = mesh.virtual_view_depth(sv, st, cam, (h, w), fx=f, fy=f, device=dev)
+        ref, face = raycast_f64(sv_cam, st, (h, w), f)
+        inner = away_from_edges(face)
+        hit = inner & (face >= 0)
+        rel = np.abs(scene[hit] - ref[hit]) / ref[hit]
+        miss_ok = bool((scene[inner & (face < 0)] == 0).all())
+        print(f"scene: {len(sv)} vertices, {len(st)} triangles; render_depth_mesh {h} x {w} against the float64 "
+              f"ray cast on {int(hit.sum())} pixels away from edges: max rel err {rel.max():.3g} (bound 1e-4), "
+              f"misses empty {miss_ok}; virtual_view_depth equal: {bool(np.array_equal(view, scene))}", flush=True)
+        if rel.max() > 1e-4 or not miss_ok or not np.array_equal(view, scene) or hit.sum() < 0.5 * h * w:
+            fail("the scene's depth is off the analytic depth")
+
+        # -- 2. the robot ---------------------------------------------------
+        robot, cam_root, finger = selffilter_robot(td, cam)
+        fv, ft = urdf.load_stl(f"{td}/meshes/finger.stl")
+        if not (np.array_equal(fv, finger.reshape(-1, 3)) and np.array_equal(ft, np.arange(len(fv)).reshape(-1, 3))):
+            fail("load_stl did not read back the finger STL")
+        n_tri = sum(len(urdf._geometry_mesh(g)[1]) for link in robot.links.values() for g in link.geometries)
+        kinds = sorted({g.kind for link in robot.links.values() for g in link.geometries})
+        joint_types = sorted({j.joint_type for j in robot.joints})
+        if len(robot.links) < 8 or n_tri < 10_000 or kinds != ["box", "cylinder", "mesh"]:
+            fail(f"the robot is too small: {len(robot.links)} links, {n_tri} triangles, {kinds}")
+        render_robot = lambda d: urdf.render_robot_depth(robot, cam_root, (h, w), fx=f, fy=f,  # noqa: E731
+                                                         joint_values=SF_JOINTS, device=d)
+        times["render_robot_depth"] = _first_and_warm(lambda: render_robot(dev), torch)
+        robot_d = times["render_robot_depth"][2]
+        robot_cpu = render_robot(cpu)
+        differ = (robot_d > 0) != (robot_cpu > 0)
+        both = (robot_d > 0) & (robot_cpu > 0)
+        rrel = float((np.abs(robot_d[both] - robot_cpu[both]) / robot_cpu[both]).max())
+        lower = np.nonzero(robot_d.any(axis=1))[0]
+        print(f"robot: {len(robot.links)} links ({', '.join(joint_types)} joints), {n_tri} triangles ({kinds}); "
+              f"render_robot_depth covers {int((robot_d > 0).sum())} pixels in rows {lower.min()}-{lower.max()}; "
+              f"card vs CPU: hit masks differ on {int(differ.sum())} pixels (bound 0.01% = {h * w // 10000}), "
+              f"depth max rel err {rrel:.3g} (bound 1e-5)", flush=True)
+        if differ.sum() > h * w // 10000 or rrel > 1e-5 or (robot_d > 0).mean() < 0.02 or lower.mean() < h / 2:
+            fail("the robot's render is off")
+
+        # -- 3. the measured frame and the self-filter ------------------------
+        meas, robot_seen = measured_frame(robot_d, scene)
+        meas_t, robot_t = torch.from_numpy(meas).to(dev), torch.from_numpy(robot_d).to(dev)
+        keep = metrics.time_fn("background_subtract", rd.background_subtract, meas_t, robot_t, 0.05)
+        cut = ~keep.cpu().numpy()
+        print(f"self-filter: robot visible on {int(robot_seen.sum())} pixels, {int(cut.sum())} cut; all visible robot "
+              f"pixels cut {bool(cut[robot_seen].all())}, all cut pixels inside the robot's silhouette "
+              f"{bool((robot_d[cut] > 0).all())}", flush=True)
+        if not cut[robot_seen].all() or not (robot_d[cut] > 0).all() or robot_seen.mean() < 0.01:
+            fail("background_subtract missed the robot or cut the scene")
+
+        # -- 4. smoothing, unprojection, normals ------------------------------
+        filt = torch.where(keep, meas_t, 0.0)
+        times["smooth_depth_image"] = _first_and_warm(lambda: rd.smooth_depth_image(filt, iterations=5), torch)
+        sm = times["smooth_depth_image"][2]
+        disp_t = rd.depth_to_disparity(filt)
+        lo = rd.disparity_to_depth(disp_t + 1.0)
+        hi = rd.disparity_to_depth(torch.clamp_min(disp_t - 1.0, 1e-3))
+        v_in = filt > 0
+        inside = bool(((sm >= lo) & (sm <= hi))[v_in].all()) and bool((sm[~v_in] == 0).all())
+        sm_cpu = rd.smooth_depth_image(filt.cpu(), iterations=5)
+        srel = float(((sm.cpu() - sm_cpu).abs()[v_in.cpu()] / sm_cpu[v_in.cpu()]).max())
+        pts, valid = metrics.time_fn("depth_to_cloud", rd.depth_to_cloud, sm, fx=f, fy=f)
+        nimg = metrics.time_fn("fast_normals_image", rs.fast_normals_image, pts, valid)
+        metrics.count("valid pixels", int(valid.sum()))
+        pts_c, valid_c = rd.depth_to_cloud(sm_cpu, fx=f, fy=f)
+        n_c = rs.fast_normals_image(pts_c, valid_c)
+        nerr = float((nimg.cpu() - n_c).abs().max())
+        print(f"smooth_depth_image (5 iterations): every pixel inside its clamp interval {inside}; card vs CPU max "
+              f"rel err {srel:.3g} (bound 1e-6); normals card vs CPU max abs diff {nerr:.3g}", flush=True)
+        if not inside or srel > 1e-6:
+            fail("the smoothing left its clamp interval or differs from the CPU")
+
+        # -- 5. planes --------------------------------------------------------
+        mask = valid & (torch.linalg.vector_norm(nimg, dim=-1) > 0.5)
+        u = np.random.default_rng(seed).random((SF_PLANES, SF_HYPOTHESES), dtype=np.float32)
+        ransac = lambda d, p, n, m: rs.multi_plane_ransac(  # noqa: E731
+            p.reshape(-1, 3), n.reshape(-1, 3), m.reshape(-1), None, num_hypotheses=SF_HYPOTHESES,
+            max_planes=SF_PLANES, threshold=SF_THRESHOLD, u=torch.from_numpy(u).to(d))
+        times["multi_plane_ransac"] = _first_and_warm(lambda: ransac(dev, pts, nimg, mask), torch)
+        pl, lab, cnt = times["multi_plane_ransac"][2]
+        pl_c, lab_c, cnt_c = ransac(cpu, pts.cpu(), nimg.cpu(), mask.cpu())
+        found = pl[: int(cnt)].cpu().numpy().astype(np.float64)
+        lab_np = lab.cpu().numpy()
+        vgrid, ugrid = np.mgrid[0:h, 0:w].astype(np.float64)
+        rays_true = np.stack([(ugrid - (w - 1) / 2) / f, (vgrid - (h - 1) / 2) / f, np.ones_like(ugrid)], -1)
+        p_true = (ref[..., None] * rays_true).reshape(-1, 3)  # each pixel's analytic surface point
+        matched = []
+        for si, (name, n_w, d_w) in enumerate(planes):
+            n_cam = cam[:3, :3] @ np.asarray(n_w)
+            on = (face.reshape(-1) // 6 == si) & (ref.reshape(-1) > 0)  # meshes 0-2: wall, floor, table slabs
+            best = None
+            for k, p in enumerate(found):
+                nk = p[:3] / np.linalg.norm(p[:3])
+                members = (lab_np == k) & on
+                if members.sum() < 100:
+                    continue
+                ang = np.degrees(np.arccos(min(abs(nk @ n_cam), 1.0)))
+                off = abs(nk @ p_true[members].mean(0) + p[3] / np.linalg.norm(p[:3]))
+                d_err = abs(np.sign(nk @ n_cam) * p[3] / np.linalg.norm(p[:3]) - (d_w - n_cam @ cam[:3, 3]))
+                if best is None or ang + 50 * off < best[0] + 50 * best[1]:
+                    best = (ang, off, k, d_err)
+            ok = best is not None and best[0] <= SF_PLANE_TOL[0] and best[3] <= SF_PLANE_TOL[1] \
+                and best[1] <= SF_PLANE_TOL[2]
+            matched.append((name, best, ok))
+        same_planes = int(cnt) == int(cnt_c) and float((pl - pl_c.to(dev)).abs().max()) <= 1e-4
+        lab_eq = float((lab.cpu() == lab_c).float().mean())
+        print(f"multi_plane_ransac over {h * w} rows ({int(mask.sum())} live), {SF_HYPOTHESES} hypotheses: {int(cnt)} "
+              f"planes, sizes {torch.bincount(lab[lab >= 0].long(), minlength=int(cnt)).tolist()}; matches "
+              f"{[(n, tuple(round(float(x), 4) for x in e) if e else None, ok) for n, e, ok in matched]} "
+              f"(surface: normal error deg, distance from the true surface at the centroid of its pixels among the "
+              f"plane's inliers m, plane, error of the plane's offset from the camera m; bounds: normal, offset, "
+              f"distance {SF_PLANE_TOL}); card vs CPU: {int(cnt_c)} planes, max diff "
+              f"{float((pl[: int(cnt)] - pl_c[: int(cnt)].to(dev)).abs().max()) if int(cnt) == int(cnt_c) else 'n/a'} "
+              f"(bound 1e-4), labels equal on {lab_eq:.5f} (bound 0.999)", flush=True)
+        if not all(ok for _, _, ok in matched) or not same_planes or lab_eq < 0.999:
+            fail("multi_plane_ransac missed a plane or differs from the CPU")
+
+        # -- 6. segmentation --------------------------------------------------
+        times["segment_normal_image"] = _first_and_warm(lambda: rs.segment_normal_image(nimg, mask), torch)
+        seg = times["segment_normal_image"][2]
+        seg_again, sweeps = rs._segment(nimg, mask, 0.3, 30)  # the same call, with its sweep count
+        seg_c = rs.segment_normal_image(nimg.cpu(), mask.cpu())
+        seg_eq = float((seg.cpu() == seg_c).float().mean())
+        n_comp = int(torch.unique(seg[seg < h * w]).numel())
+        print(f"segment_normal_image: {n_comp} components of at least 30 pixels, connected components ran {sweeps} "
+              f"sweeps (cap 256{', reached: large planes come out split, as in the JAX package' if sweeps >= 256 else ''}); "
+              f"card vs CPU labels equal on {seg_eq:.5f} (bound 0.999)", flush=True)
+        if seg_eq < 0.999 or n_comp < 3 or not torch.equal(seg, seg_again):
+            fail("segment_normal_image differs from the CPU")
+
+        # -- 7. rays against the semantic map ---------------------------------
+        semantic_map_xml(f"{td}/kitchen.xml", seed)
+        smap = semantic_map.parse_semantic_map(f"{td}/kitchen.xml")
+        n_ent = len(smap.by_id())
+        boxes = semantic_map.map_to_boxes(smap)
+        c = np.asarray([b["center"] for b in boxes], np.float32)
+        s = np.asarray([b["size"] for b in boxes], np.float32)
+        bmin, bmax = c - s / 2, c + s / 2
+        origin = np.array([0.1, -0.2, 0.0], np.float32)
+        rays = lambda d, lo_, hi_: rr.boxlist_ray_intersection(  # noqa: E731
+            torch.from_numpy(lo_).to(d), torch.from_numpy(hi_).to(d), origin, f, w, h)
+        times["boxlist_ray_intersection"] = _first_and_warm(lambda: rays(dev, bmin, bmax), torch)
+        ids, depth = times["boxlist_ray_intersection"][2]
+        ids_c, depth_c = rays(cpu, bmin, bmax)
+        fin = torch.isfinite(depth_c)
+        same_ids = bool(torch.equal(ids.cpu(), ids_c))
+        drel = float(((depth.cpu() - depth_c).abs()[fin] / depth_c[fin].abs().clamp_min(1e-30)).max())
+        same_inf = bool(torch.equal(torch.isfinite(depth.cpu()), fin))
+        e_ids, e_depth = rays(dev, bmin[:0], bmax[:0])
+        empty_ok = bool((e_ids == 0).all()) and bool(torch.isinf(e_depth).all())
+        print(f"boxlist_ray_intersection: {n_ent} map entities, {len(boxes)} boxes, {h} x {w} rays: "
+              f"{int((ids > 0).sum())} hits over {int(torch.unique(ids[ids > 0]).numel())} boxes; card vs CPU ids "
+              f"equal {same_ids}, depth max rel err {drel:.3g} (bound 1e-6); the empty list misses everywhere "
+              f"{empty_ok}", flush=True)
+        if n_ent < 50 or len(boxes) < 50 or not same_ids or drel > 1e-6 or not same_inf or not empty_ok:
+            fail("boxlist_ray_intersection differs from the CPU or mishandles the empty list")
+
+        # -- 8. the host layers on the same data -------------------------------
+        all_v, all_t, off = [], [], 0
+        for link_name, T in robot.forward_kinematics(SF_JOINTS).items():
+            for g in robot.links[link_name].geometries:
+                gv, gt = urdf._geometry_mesh(g)
+                all_v.append(gv @ T[:3, :3].T + T[:3, 3])
+                all_t.append(gt + off)
+                off += len(gv)
+        rv, rt = np.concatenate(all_v).astype(np.float32), np.concatenate(all_t)
+        with metrics.stage("vtk + dxf round trips"):
+            mesh.write_vtk_mesh(f"{td}/robot.vtk", rv, rt)
+            vv, vt = mesh.read_vtk_mesh(f"{td}/robot.vtk")
+            dxf.write_dxf_mesh(f"{td}/robot.dxf", rv, rt)
+            xv, xt = dxf.read_dxf_mesh(f"{td}/robot.dxf")
+        vtk_ok = np.array_equal(vt, rt) and np.abs(vv - rv).max() <= 1e-6
+        dxf_ok = len(xt) == len(rt) and np.abs(xv[xt] - rv[rt]).max() <= 1e-6
+        pts_g = mesh.sample_mesh_points(fv, ft, 20_000, seed=seed)
+        on = np.full(len(pts_g), np.inf)
+        a, b_, c_ = (fv[ft[:, k]].astype(np.float64) for k in range(3))
+        nrm = np.cross(b_ - a, c_ - a)
+        nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
+        for lo_i in range(0, len(pts_g), 1024):
+            q = pts_g[lo_i:lo_i + 1024].astype(np.float64)[:, None, :] - a[None]
+            on[lo_i:lo_i + 1024] = np.abs(np.einsum("tk,ptk->pt", nrm, q)).min(axis=1)
+        gcloud = PointCloud.from_numpy(pts_g, device=dev)
+        pipe = Pipeline([Stage(op="VoxelDownsample", input="in", outputs={"cloud": "down"},
+                               params={"leaf_size": 0.003, "capacity": 8192}),
+                         Stage(op="NormalEstimation", input="down", outputs={"cloud": "n"}, params={"k": 12}),
+                         Stage(op="RobustBoxEstimation", input="n", outputs={"model": "box"})])
+        out = metrics.time_fn("pipeline: voxel, normals, box", pipe.run, {"in": gcloud})
+        metrics.count("gripper points", len(pts_g))
+        direct_down = voxel_downsample(gcloud, 0.003, 8192)
+        direct = fit_box_zup(direct_down.padded_xyz(), direct_down.mask)
+        direct_n = estimate_normals(direct_down, k=12).channel("normal")
+        # the voxel sums are atomic adds on the card, so the two runs agree to rounding, not bit for bit
+        live_v = direct_down.mask
+        pipe_err = max(float((out["down"].xyz - direct_down.xyz)[live_v].abs().max()),
+                       float((out["box"].extents - direct.extents).abs().max()),
+                       float((out["box"].center - direct.center).abs().max()))
+        ndot = float((out["n"].channel("normal") * direct_n).sum(-1).abs()[live_v].min())
+        pipe_ok = torch.equal(out["down"].mask, live_v) and pipe_err <= 1e-5 and ndot >= 1 - 1e-4
+        racks = rack_cloud(seed)
+        rk_d = cluster_objects_on_racks(PointCloud.from_numpy(racks, device=dev), (0.4, 0.9, 1.4))
+        rk_c = cluster_objects_on_racks(PointCloud.from_numpy(racks, device=cpu), (0.4, 0.9, 1.4))
+        racks_ok = ([len(rk_d[r]) for r in range(3)] == [len(rk_c[r]) for r in range(3)] == [2, 3, 1]
+                    and all(np.array_equal(x, y) for r in range(3) for x, y in zip(rk_d[r], rk_c[r])))
+        jlo = JloRegistry()
+        table_lo = jlo.update("/table", root_pose())
+        cup = jlo.update("/cup", look_at((0.1, 0.2, 0.3), (0.0, 0.0, 1.0)), parent_id=table_lo.lo_id)
+        jlo_ok = np.allclose(jlo.framequery(cup.lo_id), root_pose() @ cup.pose, atol=1e-12) and np.allclose(
+            jlo.framequery(cup.lo_id, table_lo.lo_id), cup.pose, atol=1e-12)
+        print(f"host layers: VTK round trip {vtk_ok}, DXF round trip {dxf_ok} ({len(rt)} triangles); "
+              f"sample_mesh_points 20,000 on the finger: max distance to the surface {on.max():.3g} m (bound 1e-5); "
+              f"Pipeline voxel -> normals -> box against the direct calls: {int(out['down'].count())} voxels, max "
+              f"diff {pipe_err:.3g} m (bound 1e-5), least |normal dot| {ndot:.7f} (bound 1 - 1e-4): {pipe_ok}; cluster_objects_on_racks card == CPU {racks_ok} ({[len(rk_d[r]) for r in range(3)]}); "
+              f"jlo framequery {jlo_ok}", flush=True)
+        if not (vtk_ok and dxf_ok and on.max() <= 1e-5 and pipe_ok and racks_ok and jlo_ok):
+            fail("a host layer failed")
+
+        frame, _ = tabletop_frame(seed)
+        pcd.save_pcd(f"{td}/frame.pcd", {"xyz": frame})
+        with open(f"{td}/frame.pcd", "rb") as fp:
+            raw = fp.read()
+        body = raw[raw.index(b"DATA ascii\n") + len(b"DATA ascii\n"):]
+        if not native.native_available():
+            fail("the native library did not build: load_pcd would parse with numpy")
+        t0 = time.perf_counter()
+        nat = native.parse_floats(body)
+        nat_ms = 1e3 * (time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        npy = np.array(body.split(), dtype=np.float32)
+        npy_ms = 1e3 * (time.perf_counter() - t0)
+        ulps = np.abs(nat.view(np.int32).astype(np.int64) - npy.view(np.int32).astype(np.int64))
+        t0 = time.perf_counter()
+        loaded = metrics.time_fn("load_pcd (native parse)", pcd.load_pcd, f"{td}/frame.pcd", device=dev)
+        load_ms = 1e3 * (time.perf_counter() - t0)
+        load_ok = int(loaded.count()) == N_TABLE and np.array_equal(
+            loaded.xyz[:N_TABLE].cpu().numpy(), nat.reshape(-1, 3))
+        print(f"load_pcd of phase 7's {N_TABLE}-point ASCII frame ({len(body)} bytes): parse path native "
+              f"(native_available() {native.native_available()}); native parse {nat_ms:.2f} ms, numpy parse "
+              f"{npy_ms:.2f} ms, load_pcd {load_ms:.2f} ms [{smi}]; {int((ulps > 0).sum())} of {len(nat)} values "
+              f"differ, by at most {int(ulps.max())} ulp (bound 1); the cloud holds the native values {load_ok}",
+              flush=True)
+        if len(nat) != 3 * N_TABLE or ulps.max() > 1 or not load_ok:
+            fail("the native parse differs from numpy's by more than an ulp")
+
+    for name, (first, warm, _) in times.items():
+        metrics.stages[name].add(first / 1e3)
+        print(f"{name}: first call {first:.2f} ms, warm {warm:.2f} ms (median of 3) [{smi}]", flush=True)
+    print("stage times (utils.metrics.Metrics: first calls of the phase; the parses above):")
+    print(metrics.report(), flush=True)
+    print(f"phase 12: {time.perf_counter() - t_phase:.2f} s wall", flush=True)
+
+
 def main(argv=None) -> int:
     import torch
 
     ap = argparse.ArgumentParser(description="On-card smoke test of the PyTorch/CUDA port.")
     ap.add_argument("--profile", action="store_true", help="profile the paths instead of checking them")
-    ap.add_argument("--seed", type=int, default=0, help="seed of the scenes of phases 7-11")
+    ap.add_argument("--seed", type=int, default=0, help="seed of the scenes of phases 7-12")
     args = ap.parse_args(sys.argv[1:] if argv is None else argv)
 
     if not torch.cuda.is_available():
@@ -2393,6 +3017,14 @@ def main(argv=None) -> int:
 
     # -- phase 11: Hough segmentation ---------------------------------------------
     phase_hough(torch, dev, smi, args.seed)
+
+    # -- phase 12: the robot self-filter path (no NN kernel lies on it) ------------
+    reset_counts()
+    phase_selffilter(torch, dev, smi, args.seed)
+    on_path = {name: wrappers[name].launches for name in wrappers}
+    for name in launches:
+        launches[name]["self-filter (phase 12)"] = on_path[name.split(":")[0]]
+    print(f"phase 12 launched the NN kernels {on_path} times (none lies on the self-filter path)", flush=True)
 
     kernels = []
     for name, r in results.items():

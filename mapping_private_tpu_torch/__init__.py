@@ -5,17 +5,20 @@ against it by parity tests (``tests/test_torch_*.py``).  Module names
 mirror the JAX package so each counterpart is easy to find.  It imports
 torch and numpy, never jax and never ``mapping_private_tpu``.
 
-Slices ported so far: scan-to-scan registration and the mapping loop
-(``apps.icp_register``, ``apps.build_map``), tabletop perception
-(``apps.table_pipeline``, ``apps.clean_table``), the structural-scene
-models (``apps.room_segment``, ``apps.cloud_ops``), object
-recognition and classification (``apps.detect_object``,
-``apps.classify``), the sharded steps (``parallel``) and Hough
-segmentation (``apps.hough_segment``):
+Every module of the JAX package has its counterpart: scan-to-scan
+registration and the mapping loop (``apps.icp_register``,
+``apps.build_map``), tabletop perception (``apps.table_pipeline``,
+``apps.clean_table``), the structural-scene models
+(``apps.room_segment``, ``apps.cloud_ops``), object recognition and
+classification (``apps.detect_object``, ``apps.classify``), the sharded
+steps (``parallel``), Hough segmentation (``apps.hough_segment``), the
+realtime Kinect layer (``realtime``) and the host-side layers:
 
 core          PointCloud (fixed capacity + mask), the dense VoxelGrid,
               SE(3) maps, 6×6 solve
-io            PCD reader/writer, markers and PLY (host-side numpy)
+io            PCD reader/writer (ASCII through the native parser),
+              markers and PLY, VTK/DXF/PPM meshes, mesh sampling and
+              virtual views, the CAD semantic map (host-side numpy)
 ops           kNN (brute force, grid hash), normals, the three 1-NN
               kernels and their front door (brute, compact tiles, dense
               lattice), voxel downsampling, filters, clustering, region
@@ -36,6 +39,14 @@ features      C3-HLAC (ColorCHLAC 117/981, per subdivision), RSD surface
 recognition   PCA subspaces (reference file formats), sliding-box search
 classify      libsvm models, per-class subspaces, linear and kernel SVM
               training, the corpus evaluation protocols
+realtime      Kinect depth smoothing, the chunked mesh rasteriser and
+              ray/box casting, URDF parsing and robot rendering, the
+              self-filter, image normals, multi-plane RANSAC, lattice
+              connected components, mean-shift normal segmentation
+pipeline      typed configs, the op registry and DAG runner, acquisition
+integration   service and pose registries, the COP bridge, shelf racks
+native        the g++-built host library (ASCII floats, grid keys, RGB)
+utils         stage timers, counters, torch.profiler traces
 apps          the nine CLIs, each with ``--device`` (default cuda)
 csrc          hand-written CUDA C++ kernels for Hopper (sm_90a)
 """

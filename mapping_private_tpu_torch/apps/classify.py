@@ -31,6 +31,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from mapping_private_tpu_torch.utils.device import resolve_device
+
 def compute_feature(path: str, feature_type: str = "d", *, device: torch.device | str) -> np.ndarray:
     from mapping_private_tpu_torch.classify.evaluate import compute_feature as _compute
 
@@ -112,9 +114,7 @@ def main(argv=None) -> int:
     ap.add_argument("--json", action="store_true")
     ap.add_argument("--device", default="cuda", help="torch device, e.g. cuda, cuda:1, cpu")
     args = ap.parse_args(argv)
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"--device {args.device}: no CUDA device is available")
+    device = resolve_device(args.device)
     rate, per_obj = classification_rate(
         args.data_dir, args.feature, args.dim, args.objects, args.max_views, args.leave_one_out,
         verbose=not args.json, device=device,

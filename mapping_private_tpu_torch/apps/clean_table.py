@@ -17,6 +17,8 @@ import json
 import numpy as np
 import torch
 
+from mapping_private_tpu_torch.utils.device import resolve_device
+
 
 def grasp_pose_for_cluster(points: np.ndarray, standoff: float = 0.10, *,
                            device: torch.device | str) -> dict:
@@ -71,9 +73,7 @@ def main(argv=None) -> int:
     ap.add_argument("--bin", nargs=3, type=float, default=[0.0, -0.6, 0.5])
     ap.add_argument("--device", default="cuda", help="torch device, e.g. cuda, cuda:1, cpu")
     args = ap.parse_args(argv)
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"--device {args.device}: no CUDA device is available")
+    device = resolve_device(args.device)
     print(json.dumps(plan_clean_table(args.pcd, tuple(args.bin), device=device)))
     return 0
 

@@ -38,6 +38,8 @@ import os
 import numpy as np
 import torch
 
+from mapping_private_tpu_torch.utils.device import resolve_device
+
 
 def _euler_matrix(roll: float, pitch: float, yaw: float) -> np.ndarray:
     """Z·Y·X Euler composition (the reference feeds r/p/y to
@@ -67,10 +69,7 @@ def _load(path):
 
 
 def _device(args) -> torch.device:
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"--device {args.device}: no CUDA device is available")
-    return device
+    return resolve_device(args.device)
 
 
 def _save(path, xyz, extra):

@@ -29,6 +29,8 @@ import json
 import numpy as np
 import torch
 
+from mapping_private_tpu_torch.utils.device import resolve_device
+
 VOXEL_SIZE = 0.01
 
 
@@ -200,9 +202,7 @@ def main(argv=None) -> int:
             for v in out:
                 print(f"{v:f}")
         return 0
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"--device {args.device}: no CUDA device is available")
+    device = resolve_device(args.device)
     if args.command == "learn-threshold":
         thr = learn_threshold(args.pcds, args.out, device=device)
         print("threshold: %d %d %d" % thr)

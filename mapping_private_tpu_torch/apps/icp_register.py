@@ -13,6 +13,8 @@ import json
 import numpy as np
 import torch
 
+from mapping_private_tpu_torch.utils.device import resolve_device
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__)
@@ -24,9 +26,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     if len(args.pcds) < 2:
         ap.error("need at least two PCDs")
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"--device {args.device}: no CUDA device is available")
+    device = resolve_device(args.device)
 
     from mapping_private_tpu_torch.io.pcd import load_pcd
     from mapping_private_tpu_torch.ops.normals import estimate_normals

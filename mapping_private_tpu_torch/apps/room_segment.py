@@ -20,6 +20,8 @@ import json
 import numpy as np
 import torch
 
+from mapping_private_tpu_torch.utils.device import resolve_device
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
@@ -31,9 +33,7 @@ def main(argv=None) -> int:
     ap.add_argument("--out-filtered", default=None, help="cloud with wall points removed (wall_filter)")
     ap.add_argument("--device", default="cuda", help="torch device, e.g. cuda, cuda:1, cpu")
     args = ap.parse_args(argv)
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"--device {args.device}: no CUDA device is available")
+    device = resolve_device(args.device)
 
     from mapping_private_tpu_torch.io.pcd import load_pcd, save_pcd
     from mapping_private_tpu_torch.models.room_segmentation import (

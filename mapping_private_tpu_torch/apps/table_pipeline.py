@@ -15,6 +15,8 @@ import json
 
 import torch
 
+from mapping_private_tpu_torch.utils.device import resolve_device
+
 
 def run_pipeline(paths, box=None, checkpoint=None, resume=None, verbose=True, *,
                  device: torch.device | str):
@@ -67,9 +69,7 @@ def main(argv=None) -> int:
     ap.add_argument("--json", action="store_true")
     ap.add_argument("--device", default="cuda", help="torch device, e.g. cuda, cuda:1, cpu")
     args = ap.parse_args(argv)
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"--device {args.device}: no CUDA device is available")
+    device = resolve_device(args.device)
     mem = run_pipeline(args.pcds, args.box, args.checkpoint, args.resume,
                        verbose=not args.json, device=device)
     if args.dump_viz:

@@ -4,7 +4,9 @@ Counterpart of ``mapping_private_tpu/io/pcd.py``: reads modern
 ``.PCD v.5+`` (FIELDS/SIZE/TYPE/COUNT, DATA ascii or binary) and the
 legacy ``COLUMNS`` format, unpacks packed-float ``rgb`` into r/g/b, and
 turns multi-COUNT fields into (N, C) channels.  ASCII bodies are parsed
-with numpy.  Device ingestion goes through ``PointCloud.from_numpy``.
+by the native library (``native.loader.parse_floats``, numpy where it
+could not be built).  Device ingestion goes through
+``PointCloud.from_numpy``.
 """
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ import numpy as np
 import torch
 
 from mapping_private_tpu_torch.core.cloud import PointCloud
+from mapping_private_tpu_torch.native.loader import parse_floats
 
 _TYPE_MAP = {
     ("F", 4): np.float32,
@@ -99,8 +102,9 @@ def load_pcd_arrays(path: str) -> Dict[str, np.ndarray]:
 
     out: Dict[str, np.ndarray] = {}
     if data_kind == "ascii":
-        # float32 tokens, as the JAX package's parser yields them
-        flat = np.array(raw[pos:].split(), dtype=np.float32).astype(np.float64)
+        # the native multithreaded strtof parser, as in the JAX package
+        # (numpy inside when the library could not be built)
+        flat = parse_floats(raw[pos:]).astype(np.float64)
         row_len = sum(counts)
         if flat.size < npoints * row_len:
             raise ValueError(f"{path}: ascii body truncated")

@@ -35,6 +35,7 @@ from mapping_private_tpu_torch.core.se3 import se3_exp
 from mapping_private_tpu_torch.parallel import distributed as pd
 from mapping_private_tpu_torch.parallel.mesh import make_mesh
 from mapping_private_tpu_torch.registration.pose_graph import make_sharded_pose_graph_step
+from mapping_private_tpu_torch.utils.device import resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -129,8 +130,7 @@ def run_steps(
     rank in order, the list of ``run_job`` results.  Raises when a rank
     fails or exits without a result, or when ``timeout`` seconds pass;
     every rank is stopped before it returns or raises."""
-    if device.startswith("cuda") and not torch.cuda.is_available():
-        raise RuntimeError(f"device {device}: no CUDA device is available")
+    resolve_device(device)
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
     got: Dict[int, list] = {}

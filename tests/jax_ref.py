@@ -4,7 +4,7 @@
   samplers take the uniforms ``u`` in place of a generator; the draws do
   not depend on the mask, so feeding these makes both packages sample
   the same rows (``uniforms_from_jax``, ``detect_table_uniforms``,
-  ``layered_uniforms``, ``hough_uniforms``).
+  ``layered_uniforms``, ``hough_uniforms``, ``multi_plane_uniforms``).
 - ``jit_call``: a reference function run as one jitted program, which
   compiles several times faster than the same function op by op.
 - ``one_torch_thread``: a fixture a test module imports to run its torch
@@ -81,3 +81,12 @@ def hough_uniforms(key, n_rounds, num_hypotheses, significant_plane=False):
         key, sub = jax.random.split(key)
         out.append(np.array(jax.random.uniform(sub, (max(num_hypotheses, 128), 3))))
     return out + [tuple(np.array(a) for a in pair) for pair in layered_uniforms(key, n_rounds, num_hypotheses)]
+
+
+def multi_plane_uniforms(key, max_planes, num_hypotheses):
+    """What ``realtime.segmentation.multi_plane_ransac`` draws: the round
+    that has accepted ``count`` planes samples with
+    ``uniform(fold_in(key, count), (num_hypotheses,))``.  Row ``count`` of
+    the (max_planes, num_hypotheses) numpy result is that draw."""
+    return np.stack([np.asarray(jax.random.uniform(jax.random.fold_in(key, c), (num_hypotheses,)))
+                     for c in range(max_planes)])

@@ -1,11 +1,13 @@
-"""The port's subpackages re-export what the JAX package's do, and the
-two functions that were missing from done modules match.
+"""The port's subpackages re-export what the JAX package's do, every
+module of the JAX package has a counterpart, and the two functions that
+were missing from done modules match.
 
 For each subpackage the port's ``__all__`` must equal the JAX
 ``__all__`` minus the names listed in NOT_YET_PORTED: porting a name
 without taking it off the list fails, and so does taking it off the list
 before the port exports it.  Every exported name must resolve."""
 import importlib
+import pathlib
 
 import jax.numpy as jnp
 import numpy as np
@@ -19,8 +21,7 @@ from mapping_private_tpu_torch.io import pcd as tpcd
 
 NOT_YET_PORTED = {
     "core": set(),
-    "io": {"write_dxf_mesh", "read_dxf_mesh", "write_vtk_mesh", "read_vtk_mesh", "sample_mesh_points",
-           "virtual_view_depth", "SemanticMap", "parse_semantic_map", "corner_frame_offset", "map_to_boxes"},
+    "io": set(),
     "models": set(),
     "ops": set(),
     "fit": set(),
@@ -29,7 +30,33 @@ NOT_YET_PORTED = {
     "features": set(),
     "recognition": set(),
     "classify": set(),
+    "realtime": set(),
+    "pipeline": set(),
+    "integration": set(),
+    "native": set(),
+    "utils": set(),
 }
+
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+# the JAX module whose three Pallas kernels live in three port modules
+KERNEL_MODULES = {"ops/pallas_nn.py": {"ops/nn_argmin.py", "ops/nn_matmul.py", "ops/nn_gather.py"}}
+
+
+def _modules(pkg):
+    return {str(p.relative_to(REPO / pkg)) for p in (REPO / pkg).rglob("*.py") if p.name != "__init__.py"}
+
+
+def test_every_module_has_a_counterpart():
+    jax_mods, port_mods = _modules("mapping_private_tpu"), _modules("mapping_private_tpu_torch")
+    assert len(jax_mods) == 72
+    missing = {m for m in jax_mods if m not in port_mods and not KERNEL_MODULES.get(m, {m}) <= port_mods}
+    assert missing == set()
+
+
+def test_every_subpackage_is_mirrored():
+    subs = {p.parent.name for p in (REPO / "mapping_private_tpu").glob("*/__init__.py")} - {"apps"}
+    assert subs == set(NOT_YET_PORTED) and len(subs) == 15
 
 
 @pytest.mark.parametrize("sub", sorted(NOT_YET_PORTED))
@@ -59,6 +86,18 @@ def test_documented_imports():
     from mapping_private_tpu_torch.features import colorchlac117_subdiv, vosch, voxel_types
     from mapping_private_tpu_torch.recognition import PCAResult, build_scene_data, search_object
 
+    from mapping_private_tpu_torch.integration import JloRegistry
+    from mapping_private_tpu_torch.io import parse_semantic_map, read_vtk_mesh, write_dxf_mesh
+    from mapping_private_tpu_torch.native import parse_floats
+    from mapping_private_tpu_torch.pipeline import Pipeline
+    from mapping_private_tpu_torch.realtime import multi_plane_ransac, render_robot_depth
+    from mapping_private_tpu_torch.utils import Metrics
+
+    for obj, module in ((JloRegistry, "integration.services"), (parse_semantic_map, "io.semantic_map"),
+                        (read_vtk_mesh, "io.mesh"), (write_dxf_mesh, "io.dxf"), (parse_floats, "native.loader"),
+                        (Pipeline, "pipeline.dag"), (multi_plane_ransac, "realtime.segmentation"),
+                        (render_robot_depth, "realtime.urdf"), (Metrics, "utils.metrics")):
+        assert obj.__module__ == f"mapping_private_tpu_torch.{module}"
     for obj, module in ((VoxelGrid, "core.voxelgrid"), (colorchlac117_subdiv, "features.colorchlac"),
                         (vosch, "features.rsd"), (voxel_types, "features.extract"), (PCAResult, "recognition.pca"),
                         (build_scene_data, "recognition.search"), (search_object, "recognition.search"),
