@@ -1715,6 +1715,7 @@ def phase_sharded(torch, dev, smi: str, seed: int, sm_clock_hz: float, results: 
     from mapping_private_tpu_torch.core.se3 import se3_exp
     from mapping_private_tpu_torch.ops import nn_matmul, nn_search
     from mapping_private_tpu_torch.parallel.dryrun import dryrun_multichip, run_job, run_steps
+    from mapping_private_tpu_torch.utils.metrics import metrics
 
     t_phase = time.perf_counter()
     reg, maps, T_true = sharded_data(seed, se3_exp, torch)
@@ -1754,7 +1755,7 @@ def phase_sharded(torch, dev, smi: str, seed: int, sm_clock_hz: float, results: 
     # (a) NCCL, one rank a card: in this process at world size 1
     world = torch.cuda.device_count()
     jobs_a = sharded_jobs(reg, maps, world)
-    nn_matmul.launches = 0
+    metrics.counters["nn_matmul.launches"] = 0
     if world == 1:
         with tempfile.TemporaryDirectory() as td:
             dist.init_process_group("nccl", init_method=f"file://{td}/store", world_size=1, rank=0)
@@ -1762,7 +1763,7 @@ def phase_sharded(torch, dev, smi: str, seed: int, sm_clock_hz: float, results: 
                 run_a = {name: run_job(job, dev) for name, job in jobs_a.items()}
             finally:
                 dist.destroy_process_group()
-        n_launch = nn_matmul.launches
+        n_launch = metrics.counters["nn_matmul.launches"]
     else:
         per_rank = run_steps(list(jobs_a.values()), world, "nccl", "cuda", timeout=600)
         run_a = dict(zip(jobs_a, per_rank[0]))
@@ -2286,7 +2287,8 @@ def phase_selffilter(torch, dev, smi: str, seed: int):
         # -- 3. the measured frame and the self-filter ------------------------
         meas, robot_seen = measured_frame(robot_d, scene)
         meas_t, robot_t = torch.from_numpy(meas).to(dev), torch.from_numpy(robot_d).to(dev)
-        keep = metrics.time_fn("background_subtract", rd.background_subtract, meas_t, robot_t, 0.05)
+        with metrics.stage("background_subtract", sync_result=meas_t):
+            keep = rd.background_subtract(meas_t, robot_t, 0.05)
         cut = ~keep.cpu().numpy()
         print(f"self-filter: robot visible on {int(robot_seen.sum())} pixels, {int(cut.sum())} cut; all visible robot "
               f"pixels cut {bool(cut[robot_seen].all())}, all cut pixels inside the robot's silhouette "
@@ -2305,8 +2307,10 @@ def phase_selffilter(torch, dev, smi: str, seed: int):
         inside = bool(((sm >= lo) & (sm <= hi))[v_in].all()) and bool((sm[~v_in] == 0).all())
         sm_cpu = rd.smooth_depth_image(filt.cpu(), iterations=5)
         srel = float(((sm.cpu() - sm_cpu).abs()[v_in.cpu()] / sm_cpu[v_in.cpu()]).max())
-        pts, valid = metrics.time_fn("depth_to_cloud", rd.depth_to_cloud, sm, fx=f, fy=f)
-        nimg = metrics.time_fn("fast_normals_image", rs.fast_normals_image, pts, valid)
+        with metrics.stage("depth_to_cloud", sync_result=sm):
+            pts, valid = rd.depth_to_cloud(sm, fx=f, fy=f)
+        with metrics.stage("fast_normals_image", sync_result=sm):
+            nimg = rs.fast_normals_image(pts, valid)
         metrics.count("valid pixels", int(valid.sum()))
         pts_c, valid_c = rd.depth_to_cloud(sm_cpu, fx=f, fy=f)
         n_c = rs.fast_normals_image(pts_c, valid_c)
@@ -2430,7 +2434,8 @@ def phase_selffilter(torch, dev, smi: str, seed: int):
                                params={"leaf_size": 0.003, "capacity": 8192}),
                          Stage(op="NormalEstimation", input="down", outputs={"cloud": "n"}, params={"k": 12}),
                          Stage(op="RobustBoxEstimation", input="n", outputs={"model": "box"})])
-        out = metrics.time_fn("pipeline: voxel, normals, box", pipe.run, {"in": gcloud})
+        with metrics.stage("pipeline: voxel, normals, box", sync_result=gcloud):
+            out = pipe.run({"in": gcloud})
         metrics.count("gripper points", len(pts_g))
         direct_down = voxel_downsample(gcloud, 0.003, 8192)
         direct = fit_box_zup(direct_down.padded_xyz(), direct_down.mask)
@@ -2475,7 +2480,8 @@ def phase_selffilter(torch, dev, smi: str, seed: int):
         npy_ms = 1e3 * (time.perf_counter() - t0)
         ulps = np.abs(nat.view(np.int32).astype(np.int64) - npy.view(np.int32).astype(np.int64))
         t0 = time.perf_counter()
-        loaded = metrics.time_fn("load_pcd (native parse)", pcd.load_pcd, f"{td}/frame.pcd", device=dev)
+        with metrics.stage("load_pcd (native parse)", sync_result=meas_t):
+            loaded = pcd.load_pcd(f"{td}/frame.pcd", device=dev)
         load_ms = 1e3 * (time.perf_counter() - t0)
         load_ok = int(loaded.count()) == N_TABLE and np.array_equal(
             loaded.xyz[:N_TABLE].cpu().numpy(), nat.reshape(-1, 3))
@@ -2531,10 +2537,11 @@ def main(argv=None) -> int:
     from mapping_private_tpu_torch.registration.icp import (
         icp_point_to_plane, icp_point_to_plane_tiled, size_tiled_lattice)
     from mapping_private_tpu_torch.registration.scan_to_map import ScanToMapTracker, TrackerConfig
+    from mapping_private_tpu_torch.utils.metrics import metrics
 
     dev = torch.device("cuda")
     to_dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
-    wrappers = {"nn_argmin": nn_argmin, "nn_matmul": nn_matmul, "nn_gather": nn_gather}
+    nn_kernels = ("nn_argmin", "nn_matmul", "nn_gather")  # each counts its launches as "<name>.launches"
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
 
@@ -2544,8 +2551,8 @@ def main(argv=None) -> int:
         return [k * step for k in range(1, nn_search.stretch_count(nr, splits))]
 
     def reset_counts():
-        for w in wrappers.values():
-            w.launches = 0
+        for name in nn_kernels:
+            metrics.counters[f"{name}.launches"] = 0
 
     # -- phase 1: build ----------------------------------------------------
     t0 = time.perf_counter()
@@ -2764,7 +2771,7 @@ def main(argv=None) -> int:
             rc = icp_register.main(paths + ["--json", "--device", "cuda"])
         torch.cuda.synchronize()
         cli_s = time.perf_counter() - t0
-        n_launch = launches["nn_argmin"]["icp_register"] = nn_argmin.launches
+        n_launch = launches["nn_argmin"]["icp_register"] = metrics.counters["nn_argmin.launches"]
         clouds = [load_pcd(p, device=dev) for p in paths]
     out = json.loads(buf.getvalue())
     pairs = N_SCANS - 1
@@ -2823,12 +2830,12 @@ def main(argv=None) -> int:
     q_a, n_a = tgt_xyz[idx_a.long()], tgt_nrm[idx_a.long()]
     rms = {"nn_argmin": residual_rms(q, q_a, n_a)}
     idx_m, _ = nn_matmul.nn_matmul(q, tgt_xyz)
-    launches["nn_matmul"]["ops.nn_matmul"] = nn_matmul.launches
+    launches["nn_matmul"]["ops.nn_matmul"] = metrics.counters["nn_matmul.launches"]
     rms["nn_matmul"] = residual_rms(q, tgt_xyz[idx_m.long()], tgt_nrm[idx_m.long()])
     for dist in nn_gather.DIST_MODES:
-        before = nn_gather.launches
+        before = metrics.counters["nn_gather.launches"]
         sq_g, q_g, n_g = nn_gather.nn_gather(q, tgt_xyz, tgt_nrm, dist=dist)
-        launches[f"nn_gather:{dist}"]["ops.nn_gather"] = nn_gather.launches - before
+        launches[f"nn_gather:{dist}"]["ops.nn_gather"] = metrics.counters["nn_gather.launches"] - before
         rms[f"nn_gather:{dist}"] = residual_rms(q, q_g, n_g)
         if dist == "vpu":
             n_bad = int((sq_g != sq_a).sum() + (q_g != q_a).any(1).sum() + (n_g != n_a).any(1).sum())
@@ -2836,7 +2843,7 @@ def main(argv=None) -> int:
             if n_bad:
                 fail("nn_gather(dist='vpu') disagrees with what the registration path gathers")
     torch.cuda.synchronize()
-    launches["nn_argmin"]["ops cross-check"] = nn_argmin.launches
+    launches["nn_argmin"]["ops cross-check"] = metrics.counters["nn_argmin.launches"]
     print(f"one sweep's point-to-plane RMS residual by entry point: "
           f"{ {k: float(f'{v:.6g}') for k, v in rms.items()} }")
     for k, v in rms.items():
@@ -2866,7 +2873,7 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         walls.setdefault(engine, []).append(1e3 * (time.perf_counter() - t0))
         nn_out[engine] = (i_e.cpu().numpy(), s_e.cpu().numpy())
-    launches["nn_argmin"]["nn_1nn brute 200k"] = nn_argmin.launches
+    launches["nn_argmin"]["nn_1nn brute 200k"] = metrics.counters["nn_argmin.launches"]
     (i_c, s_c), (i_b, s_b) = nn_out["compact"], nn_out["brute"]
     n_sq = int((bits(s_c) != bits(s_b)).sum())
     differ = i_c != i_b
@@ -2970,7 +2977,7 @@ def main(argv=None) -> int:
             rc = build_map.main(paths + ["--json", "--relax", "--device", "cuda"])
         torch.cuda.synchronize()
         map_s = time.perf_counter() - t0
-        n_launch = launches["nn_argmin"]["build_map"] = nn_argmin.launches
+        n_launch = launches["nn_argmin"]["build_map"] = metrics.counters["nn_argmin.launches"]
         clouds = [load_pcd(p, capacity_bucket=2048, device=dev) for p in paths]
     out = json.loads(buf.getvalue())
     traj = np.asarray(out["trajectory"], np.float64)
@@ -3021,7 +3028,7 @@ def main(argv=None) -> int:
     # -- phase 12: the robot self-filter path (no NN kernel lies on it) ------------
     reset_counts()
     phase_selffilter(torch, dev, smi, args.seed)
-    on_path = {name: wrappers[name].launches for name in wrappers}
+    on_path = {name: metrics.counters[f"{name}.launches"] for name in nn_kernels}
     for name in launches:
         launches[name]["self-filter (phase 12)"] = on_path[name.split(":")[0]]
     print(f"phase 12 launched the NN kernels {on_path} times (none lies on the self-filter path)", flush=True)

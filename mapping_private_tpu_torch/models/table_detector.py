@@ -34,6 +34,7 @@ from mapping_private_tpu_torch.ops.cluster import euclidean_cluster, top_cluster
 from mapping_private_tpu_torch.ops.hull import RadialHull, in_radial_hull, radial_hull
 from mapping_private_tpu_torch.ops.normals import estimate_normals
 from mapping_private_tpu_torch.ops.voxel import voxel_downsample
+from mapping_private_tpu_torch.utils.metrics import metrics
 
 
 @dataclasses.dataclass(frozen=True)
@@ -113,84 +114,89 @@ def detect_table(
     from ``generator``, or takes them as ``u``."""
     cfg = config
     dev = cloud.xyz.device
-    cos_eps = f32_of(torch.cos, cfg.eps_angle, dev)
-    # 1. z-band filter (reference cloud_cb :353-363)
-    band = (cloud.xyz[:, 2] >= cfg.table_min_height) & (cloud.xyz[:, 2] <= cfg.table_max_height)
+    with metrics.span("detect_table"):
+        cos_eps = f32_of(torch.cos, cfg.eps_angle, dev)
+        with metrics.span("detect_table.downsample"):
+            # 1. z-band filter (reference cloud_cb :353-363)
+            band = (cloud.xyz[:, 2] >= cfg.table_min_height) & (cloud.xyz[:, 2] <= cfg.table_max_height)
 
-    # 2. voxel downsample (:372)
-    down = voxel_downsample(cloud.select(band), cfg.leaf_size, cfg.down_capacity)
+            # 2. voxel downsample (:372)
+            down = voxel_downsample(cloud.select(band), cfg.leaf_size, cfg.down_capacity)
 
-    # 3. normals (:392)
-    down = estimate_normals(down, k=cfg.k_normals, viewpoint=torch.zeros(3, device=dev))
-    normals = down.channel("normal")
-    xyz = down.padded_xyz()
+        with metrics.span("detect_table.candidates"):
+            # 3. normals (:392)
+            down = estimate_normals(down, k=cfg.k_normals, viewpoint=torch.zeros(3, device=dev))
+            normals = down.channel("normal")
+            xyz = down.padded_xyz()
 
-    # 4. z-parallel normal selection (:396)
-    cand_mask = down.mask & (torch.abs(normals[:, 2]) >= cos_eps)
+            # 4. z-parallel normal selection (:396)
+            cand_mask = down.mask & (torch.abs(normals[:, 2]) >= cos_eps)
 
-    # 5. cluster candidate surface points (:401)
-    labels = euclidean_cluster(xyz, cand_mask, cfg.clusters_growing_tolerance, k=cfg.cluster_knn,
-                               normals=normals, angle_threshold=cfg.region_angle_threshold)
-    members, _ = top_clusters(labels, cand_mask, cfg.max_table_candidates,
-                              min_size=cfg.clusters_min_pts)
+            # 5. cluster candidate surface points (:401)
+            labels = euclidean_cluster(xyz, cand_mask, cfg.clusters_growing_tolerance, k=cfg.cluster_knn,
+                                       normals=normals, angle_threshold=cfg.region_angle_threshold)
+            members, _ = top_clusters(labels, cand_mask, cfg.max_table_candidates,
+                                      min_size=cfg.clusters_min_pts)
 
-    # 6. a RANSAC plane per candidate, all candidates in one batch
-    if u is None:
-        u = torch.rand(table_uniforms_shape(cfg), generator=generator, device=dev)
-    planes, inlier_sets = fit_plane_ransac(xyz, members, u=u, num_hypotheses=cfg.sac_hypotheses,
-                                           threshold=cfg.sac_distance_threshold)
-    ok = torch.abs(planes[:, 2]) >= cos_eps
-    if cfg.wanted_table_center is not None:
-        # one_table gate: the candidate's inlier centroid near the wanted table
-        w = inlier_sets.to(torch.float32)[..., None]
-        centroid = torch.sum(xyz[:, :2] * w, dim=1) / torch.clamp_min(torch.sum(w, dim=1), 1.0)
-        want = torch.tensor(cfg.wanted_table_center, dtype=torch.float32, device=dev)
-        ok &= torch.sum((centroid - want) ** 2, dim=-1) < cfg.max_sqr_dist_to_wanted_table
-    counts = torch.where(ok, torch.sum(inlier_sets, dim=1, dtype=torch.int32), -1)
-    best = torch.argmax(counts)
-    plane = planes[best]
-    # orient the plane normal +z for a consistent "above the table" side
-    flip = torch.sign(plane[2])
-    plane = plane * torch.where(flip == 0, 1.0, flip)
-    table_inliers = inlier_sets[best]
-    found = counts[best] >= cfg.min_table_inliers
+        with metrics.span("detect_table.ransac"):
+            # 6. a RANSAC plane per candidate, all candidates in one batch
+            if u is None:
+                u = torch.rand(table_uniforms_shape(cfg), generator=generator, device=dev)
+            planes, inlier_sets = fit_plane_ransac(xyz, members, u=u, num_hypotheses=cfg.sac_hypotheses,
+                                                   threshold=cfg.sac_distance_threshold)
+            ok = torch.abs(planes[:, 2]) >= cos_eps
+            if cfg.wanted_table_center is not None:
+                # one_table gate: the candidate's inlier centroid near the wanted table
+                w = inlier_sets.to(torch.float32)[..., None]
+                centroid = torch.sum(xyz[:, :2] * w, dim=1) / torch.clamp_min(torch.sum(w, dim=1), 1.0)
+                want = torch.tensor(cfg.wanted_table_center, dtype=torch.float32, device=dev)
+                ok &= torch.sum((centroid - want) ** 2, dim=-1) < cfg.max_sqr_dist_to_wanted_table
+            counts = torch.where(ok, torch.sum(inlier_sets, dim=1, dtype=torch.int32), -1)
+            best = torch.argmax(counts)
+            plane = planes[best]
+            # orient the plane normal +z for a consistent "above the table" side
+            flip = torch.sign(plane[2])
+            plane = plane * torch.where(flip == 0, 1.0, flip)
+            table_inliers = inlier_sets[best]
+            found = counts[best] >= cfg.min_table_inliers
 
-    # 7. table bounds + hull (:485)
-    t_min, t_max = _masked_minmax(down.xyz, table_inliers)
-    hull = radial_hull(down.xyz[:, :2], table_inliers, num_bins=cfg.hull_bins)
+        with metrics.span("detect_table.objects"):
+            # 7. table bounds + hull (:485)
+            t_min, t_max = _masked_minmax(down.xyz, table_inliers)
+            hull = radial_hull(down.xyz[:, :2], table_inliers, num_bins=cfg.hull_bins)
 
-    # 8. object candidates above the table (findObjectClusters :254-341)
-    above = (down.mask
-             & (xyz[:, 0] > t_min[0]) & (xyz[:, 0] < t_max[0])
-             & (xyz[:, 1] > t_min[1]) & (xyz[:, 1] < t_max[1])
-             & (xyz[:, 2] > t_max[2] + cfg.delta_z))
-    dist_to_plane = xyz @ plane[:3] + plane[3]
-    proj = xyz - dist_to_plane[:, None] * plane[:3][None, :]
-    above &= in_radial_hull(hull, proj[:, :2])
+            # 8. object candidates above the table (findObjectClusters :254-341)
+            above = (down.mask
+                     & (xyz[:, 0] > t_min[0]) & (xyz[:, 0] < t_max[0])
+                     & (xyz[:, 1] > t_min[1]) & (xyz[:, 1] < t_max[1])
+                     & (xyz[:, 2] > t_max[2] + cfg.delta_z))
+            dist_to_plane = xyz @ plane[:3] + plane[3]
+            proj = xyz - dist_to_plane[:, None] * plane[:3][None, :]
+            above &= in_radial_hull(hull, proj[:, :2])
 
-    # 9. cluster objects
-    obj_labels = euclidean_cluster(xyz, above, cfg.object_cluster_tolerance, k=cfg.cluster_knn)
-    obj_masks, obj_sizes = top_clusters(obj_labels, above, cfg.max_objects,
-                                        min_size=cfg.object_cluster_min_pts)
+            # 9. cluster objects
+            obj_labels = euclidean_cluster(xyz, above, cfg.object_cluster_tolerance, k=cfg.cluster_knn)
+            obj_masks, obj_sizes = top_clusters(obj_labels, above, cfg.max_objects,
+                                                min_size=cfg.object_cluster_min_pts)
 
-    # 10. support check: a cluster must start near the table surface
-    obj_min, obj_max = _masked_minmax(down.xyz, obj_masks)
-    w = obj_masks.to(torch.float32)[..., None]
-    obj_centers = torch.sum(down.xyz * w, dim=1) / torch.clamp_min(torch.sum(w, dim=1), 1.0)
-    supported = obj_min[:, 2] <= t_max[2] + cfg.object_min_distance_from_table
-    keep = supported & (obj_sizes > 0) & found
+            # 10. support check: a cluster must start near the table surface
+            obj_min, obj_max = _masked_minmax(down.xyz, obj_masks)
+            w = obj_masks.to(torch.float32)[..., None]
+            obj_centers = torch.sum(down.xyz * w, dim=1) / torch.clamp_min(torch.sum(w, dim=1), 1.0)
+            supported = obj_min[:, 2] <= t_max[2] + cfg.object_min_distance_from_table
+            keep = supported & (obj_sizes > 0) & found
 
-    det = TableDetection(
-        found=found,
-        plane=plane,
-        table_inliers=table_inliers & found,
-        table_min=t_min,
-        table_max=t_max,
-        hull=hull,
-        object_masks=obj_masks & keep[:, None],
-        object_sizes=torch.where(keep, obj_sizes, 0),
-        object_centers=obj_centers,
-        object_min=obj_min,
-        object_max=obj_max,
-    )
-    return det, down
+            det = TableDetection(
+                found=found,
+                plane=plane,
+                table_inliers=table_inliers & found,
+                table_min=t_min,
+                table_max=t_max,
+                hull=hull,
+                object_masks=obj_masks & keep[:, None],
+                object_sizes=torch.where(keep, obj_sizes, 0),
+                object_centers=obj_centers,
+                object_min=obj_min,
+                object_max=obj_max,
+            )
+        return det, down

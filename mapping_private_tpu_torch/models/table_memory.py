@@ -35,6 +35,7 @@ from mapping_private_tpu_torch.ops.hull import (
     polygon_area,
 )
 from mapping_private_tpu_torch.ops.mls import mls
+from mapping_private_tpu_torch.utils.metrics import metrics
 
 CYLINDER_HYPOTHESES = 512  # fit_cylinder_ransac's default, the uniforms a cluster draws
 
@@ -159,44 +160,46 @@ class TableMemory:
         memory's device seeded with 0), one cluster after another.
 
         Returns the table id the observation was merged into."""
-        if generator is None:
-            generator = torch.Generator(device=self.device).manual_seed(0)
-        polygon = convex_hull_2d(np.asarray(table_hull_xy))
-        center = np.concatenate([
-            polygon.mean(0) if len(polygon) else np.zeros(2), [table_height]
-        ])
+        with metrics.span("table_memory"):
+            if generator is None:
+                generator = torch.Generator(device=self.device).manual_seed(0)
+            polygon = convex_hull_2d(np.asarray(table_hull_xy))
+            center = np.concatenate([
+                polygon.mean(0) if len(polygon) else np.zeros(2), [table_height]
+            ])
 
-        table = None
-        for t in self.tables:
-            if tables_match(t.polygon, polygon_area(t.polygon), polygon, center):
-                table = t
-                break
-        if table is None:
-            table = Table(
-                table_id=len(self.tables), center=center,
-                polygon=polygon, height=float(table_height),
-            )
-            self.tables.append(table)
-        else:
-            # merge polygon: hull of union (update_table RobustBoxEstimation
-            # over the merged contour, :437-444)
-            merged = np.vstack([table.polygon, polygon])
-            table.polygon = convex_hull_2d(merged)
-            table.center = np.concatenate([table.polygon.mean(0), [table.height]])
+            table = None
+            for t in self.tables:
+                if tables_match(t.polygon, polygon_area(t.polygon), polygon, center):
+                    table = t
+                    break
+            if table is None:
+                table = Table(
+                    table_id=len(self.tables), center=center,
+                    polygon=polygon, height=float(table_height),
+                )
+                self.tables.append(table)
+            else:
+                # merge polygon: hull of union (update_table RobustBoxEstimation
+                # over the merged contour, :437-444)
+                merged = np.vstack([table.polygon, polygon])
+                table.polygon = convex_hull_2d(merged)
+                table.center = np.concatenate([table.polygon.mean(0), [table.height]])
 
-        inst = TableStateInstance(stamp=stamp)
-        for pts in object_clusters:
-            obj = _reconstruct_object(np.asarray(pts, np.float32), generator,
-                                      self.sac_threshold, device=self.device)
-            if self.classify_fn is not None:
-                try:
-                    obj.semantic_class = str(self.classify_fn(obj.points))
-                except Exception:
-                    obj.semantic_class = ""
-            inst.objects.append(obj)
-        self._name_objects(table, inst)
-        table.instances.append(inst)
-        return table.table_id
+            inst = TableStateInstance(stamp=stamp)
+            for pts in object_clusters:
+                with metrics.span("table_memory.object"):
+                    obj = _reconstruct_object(np.asarray(pts, np.float32), generator,
+                                              self.sac_threshold, device=self.device)
+                    if self.classify_fn is not None:
+                        try:
+                            obj.semantic_class = str(self.classify_fn(obj.points))
+                        except Exception:
+                            obj.semantic_class = ""
+                inst.objects.append(obj)
+            self._name_objects(table, inst)
+            table.instances.append(inst)
+            return table.table_id
 
     def _name_objects(self, table: Table, inst: TableStateInstance,
                       match_dist: float = 0.08) -> None:

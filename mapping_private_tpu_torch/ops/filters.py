@@ -23,6 +23,7 @@ import torch
 from mapping_private_tpu_torch.core.cloud import PointCloud
 from mapping_private_tpu_torch.core.linalg import f32_of
 from mapping_private_tpu_torch.ops.neighbors import build_grid_hash, knn_bruteforce, knn_grid
+from mapping_private_tpu_torch.utils.metrics import metrics
 
 
 def statistical_outlier_mask(
@@ -45,6 +46,10 @@ def statistical_outlier_mask(
         self_idx = torch.arange(xyz.shape[0], dtype=torch.int32, device=xyz.device)
         idx, sq = knn_grid(grid, xyz, k=k, self_idx=self_idx)
     else:
+        # every row against every ref: the pairs of two live points are the useful ones
+        metrics.count("denoise.pairs", xyz.shape[0] * xyz.shape[0])
+        if metrics.on():
+            metrics.count("denoise.live_pairs", torch.sum(mask, dtype=torch.int64) ** 2)
         idx, sq = knn_bruteforce(xyz, xyz, mask, k=k, exclude_self=True)
     valid = (idx >= 0) & torch.isfinite(sq)
     d = torch.where(valid, torch.sqrt(torch.clamp_min(sq, 0.0)), 0.0)
@@ -69,10 +74,11 @@ def remove_statistical_outliers(
 ) -> Tuple[PointCloud, torch.Tensor]:
     """Filtered cloud + validity flag (a 0-d bool tensor: count ≥
     min_nr_pts, the reference's output gate at noise_removal.cpp:145-150)."""
-    keep = statistical_outlier_mask(cloud.padded_xyz(), cloud.mask, k=k, alpha=alpha,
-                                    use_grid=use_grid, cell_size=cell_size)
-    out = cloud.select(keep)
-    return out, out.count() >= min_nr_pts
+    with metrics.span("denoise"):
+        keep = statistical_outlier_mask(cloud.padded_xyz(), cloud.mask, k=k, alpha=alpha,
+                                        use_grid=use_grid, cell_size=cell_size)
+        out = cloud.select(keep)
+        return out, out.count() >= min_nr_pts
 
 
 def box_filter_mask(xyz: torch.Tensor, mask: torch.Tensor, min_corner, max_corner) -> torch.Tensor:
@@ -83,7 +89,8 @@ def box_filter_mask(xyz: torch.Tensor, mask: torch.Tensor, min_corner, max_corne
 
 
 def box_filter(cloud: PointCloud, min_corner, max_corner) -> PointCloud:
-    return cloud.select(box_filter_mask(cloud.xyz, cloud.mask, min_corner, max_corner))
+    with metrics.span("box_filter"):
+        return cloud.select(box_filter_mask(cloud.xyz, cloud.mask, min_corner, max_corner))
 
 
 def _axis_cos(normals: torch.Tensor, axis) -> torch.Tensor:

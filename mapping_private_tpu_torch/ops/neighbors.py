@@ -27,6 +27,7 @@ from typing import Optional, Tuple
 import torch
 
 from mapping_private_tpu_torch.core.cloud import PAD_COORD
+from mapping_private_tpu_torch.utils.metrics import metrics
 
 # Elements of one (rows, N) distance block: 64 Mi floats = 256 MB.
 _CHUNK_ELEMS = 1 << 26
@@ -63,21 +64,22 @@ def knn_bruteforce(
     q, n = query_xyz.shape[0], ref_xyz.shape[0]
     rows = max(1, _CHUNK_ELEMS // max(n, 1))
     idx_parts, sq_parts = [], []
-    for s in range(0, q, rows):
-        d2 = pairwise_sq_dists(query_xyz[s : s + rows], ref_xyz)
-        d2 = d2.masked_fill(~ref_mask[None, :], torch.inf)
-        if exclude_self:
-            r = torch.arange(d2.shape[0], device=d2.device)
-            d2[r, r + s] = torch.inf
-        if k == 1:
-            idx = torch.argmin(d2, dim=1, keepdim=True)
-            sq = torch.gather(d2, 1, idx)
-        else:
-            sq, idx = torch.topk(d2, k, dim=1, largest=False, sorted=True)
-        valid = torch.isfinite(sq)
-        idx_parts.append(torch.where(valid, idx, -1).to(torch.int32))
-        sq_parts.append(torch.where(valid, sq, torch.inf))
-    return torch.cat(idx_parts), torch.cat(sq_parts)
+    with metrics.span("knn"):
+        for s in range(0, q, rows):
+            d2 = pairwise_sq_dists(query_xyz[s : s + rows], ref_xyz)
+            d2 = d2.masked_fill(~ref_mask[None, :], torch.inf)
+            if exclude_self:
+                r = torch.arange(d2.shape[0], device=d2.device)
+                d2[r, r + s] = torch.inf
+            if k == 1:
+                idx = torch.argmin(d2, dim=1, keepdim=True)
+                sq = torch.gather(d2, 1, idx)
+            else:
+                sq, idx = torch.topk(d2, k, dim=1, largest=False, sorted=True)
+            valid = torch.isfinite(sq)
+            idx_parts.append(torch.where(valid, idx, -1).to(torch.int32))
+            sq_parts.append(torch.where(valid, sq, torch.inf))
+        return torch.cat(idx_parts), torch.cat(sq_parts)
 
 
 _KEY_SENTINEL = 1 << 30

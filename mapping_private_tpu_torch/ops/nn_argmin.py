@@ -21,9 +21,7 @@ from typing import Tuple
 
 import torch
 
-# Kernel launches made through nn_argmin_prepared (read and reset by
-# callers that need to show a run went through the kernel).
-launches = 0
+from mapping_private_tpu_torch.utils.metrics import metrics
 
 # Elements of one (rows, N) block in the plain version: 32 Mi floats.
 _CHUNK_ELEMS = 1 << 25
@@ -83,12 +81,11 @@ def nn_argmin_prepared(
 
 
 def _launch(q: torch.Tensor, rt: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    global launches
     from mapping_private_tpu_torch.ops.nn_search import search_index
 
     if q.shape[0] == 0:
         return (torch.empty((0,), dtype=torch.int32, device=q.device),
                 torch.empty((0,), dtype=torch.float32, device=q.device))
     out = search_index("nn_argmin", q, rt, rt.shape[1])
-    launches += 1
+    metrics.count("nn_argmin.launches")
     return out

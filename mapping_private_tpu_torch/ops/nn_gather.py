@@ -40,10 +40,7 @@ import torch
 
 from mapping_private_tpu_torch.core.cloud import PAD_COORD
 from mapping_private_tpu_torch.ops.nn_matmul import expansion_sq_dists, sq_norm_rows
-
-# Kernel launches made through nn_gather_prepared (read and reset by
-# callers that need to show a run went through the kernel).
-launches = 0
+from mapping_private_tpu_torch.utils.metrics import metrics
 
 # The reference's tie window: exact ties are averaged inside aligned
 # blocks of this many refs and resolved by strict '<' across them.
@@ -150,7 +147,6 @@ def nn_gather(
 
 def _launch(q, rt, nt, dist, splits=None):
     """The kernel through ``nn_search.search``; ``splits`` as there."""
-    global launches
     from mapping_private_tpu_torch.ops.nn_search import search
 
     nq = q.shape[0]
@@ -161,5 +157,5 @@ def _launch(q, rt, nt, dist, splits=None):
         return sq, q_sel, n_sel
     # the output policy's arguments of csrc/nn_gather.cu's entry point
     search("nn_gather", q, rt, rt.shape[1], (DIST_MODES.index(dist), nt, sq, q_sel, n_sel), splits)
-    launches += 1
+    metrics.count("nn_gather.launches")
     return sq, q_sel, n_sel

@@ -24,9 +24,7 @@ from typing import Tuple
 
 import torch
 
-# Kernel launches made through nn_matmul (read and reset by callers that
-# need to show a run went through the kernel).
-launches = 0
+from mapping_private_tpu_torch.utils.metrics import metrics
 
 # Elements of one (rows, N) block in the plain version: 32 Mi floats.
 _CHUNK_ELEMS = 1 << 25
@@ -91,12 +89,11 @@ def nn_matmul(
 
 
 def _launch(q: torch.Tensor, r: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    global launches
     from mapping_private_tpu_torch.ops.nn_search import search_index
 
     if q.shape[0] == 0:
         return (torch.empty((0,), dtype=torch.int32, device=q.device),
                 torch.empty((0,), dtype=torch.float32, device=q.device))
     out = search_index("nn_matmul", q, r, r.shape[0])
-    launches += 1
+    metrics.count("nn_matmul.launches")
     return out

@@ -14,6 +14,7 @@ import torch
 
 from mapping_private_tpu_torch.core.cloud import PointCloud
 from mapping_private_tpu_torch.ops.neighbors import build_grid_hash, knn_bruteforce, knn_grid
+from mapping_private_tpu_torch.utils.metrics import metrics
 
 
 def eigvals_sym3x3(A: torch.Tensor) -> torch.Tensor:
@@ -106,13 +107,14 @@ def estimate_normals(
     nearest other points: brute force, or with ``use_grid`` the grid hash
     of cell ``cell_size`` (exact when the k-th neighbour lies within one
     cell and no stencil cell overflows; for large clouds)."""
-    xyz = cloud.padded_xyz()
-    if use_grid:
-        grid = build_grid_hash(xyz, cloud.mask, cell_size)
-        self_idx = torch.arange(xyz.shape[0], dtype=torch.int32, device=xyz.device)
-        idx, _ = knn_grid(grid, xyz, k=k, self_idx=self_idx)
-    else:
-        idx, _ = knn_bruteforce(xyz, xyz, cloud.mask, k=k, exclude_self=True)
-    valid = (idx >= 0) & cloud.mask[:, None]
-    nrm, curv = normals_from_neighbors(xyz, idx, valid, viewpoint)
-    return cloud.with_channel("normal", nrm).with_channel("curvature", curv)
+    with metrics.span("normals"):
+        xyz = cloud.padded_xyz()
+        if use_grid:
+            grid = build_grid_hash(xyz, cloud.mask, cell_size)
+            self_idx = torch.arange(xyz.shape[0], dtype=torch.int32, device=xyz.device)
+            idx, _ = knn_grid(grid, xyz, k=k, self_idx=self_idx)
+        else:
+            idx, _ = knn_bruteforce(xyz, xyz, cloud.mask, k=k, exclude_self=True)
+        valid = (idx >= 0) & cloud.mask[:, None]
+        nrm, curv = normals_from_neighbors(xyz, idx, valid, viewpoint)
+        return cloud.with_channel("normal", nrm).with_channel("curvature", curv)

@@ -36,6 +36,7 @@ from mapping_private_tpu_torch.parallel import distributed as pd
 from mapping_private_tpu_torch.parallel.mesh import make_mesh
 from mapping_private_tpu_torch.registration.pose_graph import make_sharded_pose_graph_step
 from mapping_private_tpu_torch.utils.device import resolve_device
+from mapping_private_tpu_torch.utils.metrics import metrics
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,9 +71,7 @@ def _sync(device: torch.device) -> None:
 
 
 def _kernel_launches() -> Dict[str, int]:
-    from mapping_private_tpu_torch.ops import nn_argmin, nn_gather, nn_matmul
-
-    return {"nn_argmin": nn_argmin.launches, "nn_gather": nn_gather.launches, "nn_matmul": nn_matmul.launches}
+    return {k: metrics.counters.get(f"{k}.launches", 0) for k in ("nn_argmin", "nn_gather", "nn_matmul")}
 
 
 def run_job(job: StepJob, device: torch.device) -> Optional[JobResult]:

@@ -32,6 +32,7 @@ from mapping_private_tpu_torch.ops.tiled_nn import (
     refresh_compact_coords,
     tiled_nn_for_icp,
 )
+from mapping_private_tpu_torch.utils.metrics import metrics
 
 
 @dataclasses.dataclass(frozen=True)
@@ -121,59 +122,62 @@ def icp_point_to_plane(
     query δ from where it was bucketed keeps its guaranteed NN radius
     tile_size − δ.  Without it the queries are re-bucketed every sweep.
     """
-    if nn_backend == "auto":
-        tgt_padded = torch.where(tgt_mask[:, None], tgt_xyz, PAD_COORD)
-        tgt_normals = torch.where(tgt_mask[:, None], tgt_normals, 0.0)
-        tgt_xyz = tgt_padded
-        prepared = prepare_nn_ref_argmin(tgt_padded)  # once, outside the loop
+    with metrics.span("icp"):
+        if nn_backend == "auto":
+            tgt_padded = torch.where(tgt_mask[:, None], tgt_xyz, PAD_COORD)
+            tgt_normals = torch.where(tgt_mask[:, None], tgt_normals, 0.0)
+            tgt_xyz = tgt_padded
+            prepared = prepare_nn_ref_argmin(tgt_padded)  # once, outside the loop
 
-        def nn_fn(p):
-            return nn_argmin_prepared(torch.where(src_mask[:, None], p, -PAD_COORD), prepared)
+            def nn_fn(p):
+                return nn_argmin_prepared(torch.where(src_mask[:, None], p, -PAD_COORD), prepared)
 
-    elif nn_backend == "xla":
+        elif nn_backend == "xla":
 
-        def nn_fn(p):
-            idx, sq = knn_bruteforce(p, tgt_xyz, tgt_mask, k=1)
-            return idx[:, 0], sq[:, 0]
+            def nn_fn(p):
+                idx, sq = knn_bruteforce(p, tgt_xyz, tgt_mask, k=1)
+                return idx[:, 0], sq[:, 0]
 
-    elif nn_backend == "grid":
-        grid = build_grid_hash(tgt_xyz, tgt_mask, grid_cell)
+        elif nn_backend == "grid":
+            grid = build_grid_hash(tgt_xyz, tgt_mask, grid_cell)
 
-        def nn_fn(p):
-            return nn_grid_1nn(grid, p, cap_per_cell=cap_per_cell)
+            def nn_fn(p):
+                return nn_grid_1nn(grid, p, cap_per_cell=cap_per_cell)
 
-    elif nn_backend == "tiled":
-        if tile_origin is None or tile_dims is None:
-            raise ValueError(
-                "nn_backend='tiled' needs tile_origin/tile_dims — "
-                "call icp_point_to_plane_tiled(...) instead")
-        # the target is bucketed once; the queries at their current pose
-        origin = torch.as_tensor(tile_origin, dtype=torch.float32, device=tgt_xyz.device)
-        if rebucket_sweeps is not None and max_tiles > 0:
-            nn_fn = _segmented_nn(
-                tgt_xyz, tgt_mask, src_mask, origin, grid_cell, tile_dims, cap_per_cell,
-                max_tiles, -(-iters // min(max(int(rebucket_sweeps), 1), iters)))
+        elif nn_backend == "tiled":
+            if tile_origin is None or tile_dims is None:
+                raise ValueError(
+                    "nn_backend='tiled' needs tile_origin/tile_dims — "
+                    "call icp_point_to_plane_tiled(...) instead")
+            # the target is bucketed once; the queries at their current pose
+            origin = torch.as_tensor(tile_origin, dtype=torch.float32, device=tgt_xyz.device)
+            if rebucket_sweeps is not None and max_tiles > 0:
+                nn_fn = _segmented_nn(
+                    tgt_xyz, tgt_mask, src_mask, origin, grid_cell, tile_dims, cap_per_cell,
+                    max_tiles, -(-iters // min(max(int(rebucket_sweeps), 1), iters)))
+            else:
+                nn_fn = tiled_nn_for_icp(
+                    tgt_xyz, tgt_mask, origin, grid_cell, tile_dims, cap_per_cell,
+                    max_tiles=max_tiles, query_mask=src_mask)
+
         else:
-            nn_fn = tiled_nn_for_icp(
-                tgt_xyz, tgt_mask, origin, grid_cell, tile_dims, cap_per_cell,
-                max_tiles=max_tiles, query_mask=src_mask)
+            raise ValueError(f"unknown nn_backend {nn_backend!r}")
 
-    else:
-        raise ValueError(f"unknown nn_backend {nn_backend!r}")
-
-    T = torch.eye(4, dtype=src_xyz.dtype, device=src_xyz.device) if init_T is None else init_T
-    rmses, cnts = [], []
-    for _ in range(iters):
-        p = se3_apply(T, src_xyz)
-        idx, sq = nn_fn(p)
-        T, rmse, cnt = _gn_from_corr(
-            p, idx, sq, src_mask, tgt_xyz, tgt_normals, T,
-            max_corr_dist, huber_delta, damping,
-        )
-        rmses.append(rmse)
-        cnts.append(cnt)
-    per_iter = torch.stack(rmses)
-    return ICPResult(transform=T, rmse=per_iter[-1], num_corr=cnts[-1], per_iter_rmse=per_iter)
+        T = torch.eye(4, dtype=src_xyz.dtype, device=src_xyz.device) if init_T is None else init_T
+        rmses, cnts = [], []
+        for _ in range(iters):
+            p = se3_apply(T, src_xyz)
+            with metrics.span("icp.nn"):
+                idx, sq = nn_fn(p)
+            with metrics.span("icp.gn"):
+                T, rmse, cnt = _gn_from_corr(
+                    p, idx, sq, src_mask, tgt_xyz, tgt_normals, T,
+                    max_corr_dist, huber_delta, damping,
+                )
+            rmses.append(rmse)
+            cnts.append(cnt)
+        per_iter = torch.stack(rmses)
+        return ICPResult(transform=T, rmse=per_iter[-1], num_corr=cnts[-1], per_iter_rmse=per_iter)
 
 
 def _segmented_nn(tgt_xyz, tgt_mask, src_mask, origin, tile, dims, cap, max_tiles, seg_len):

@@ -20,6 +20,7 @@ import torch
 from mapping_private_tpu_torch import _build
 from mapping_private_tpu_torch.core.cloud import PAD_COORD
 from mapping_private_tpu_torch.ops import nn_argmin, nn_search
+from mapping_private_tpu_torch.utils.metrics import metrics
 
 
 def _random(nq, nr, seed):
@@ -134,9 +135,9 @@ def test_wrapper_rejects_bad_inputs():
 
 
 def test_cpu_never_counts_a_launch():
-    before = nn_argmin.launches
+    before = metrics.counters["nn_argmin.launches"]
     _port(*_random(10, 20, 5))
-    assert nn_argmin.launches == before
+    assert metrics.counters["nn_argmin.launches"] == before
 
 
 @pytest.fixture
@@ -155,10 +156,10 @@ def test_kernel_matches_plain_on_card(case, cuda_device):
         q, r = _random(1, 5, 7)
     else:
         q, r = CASES[case]()
-    before = nn_argmin.launches
+    before = metrics.counters["nn_argmin.launches"]
     idx_k, sq_k = _port(q, r, cuda_device)
     torch.cuda.synchronize()
-    assert nn_argmin.launches == before + 1
+    assert metrics.counters["nn_argmin.launches"] == before + 1
     qd = torch.from_numpy(q).to(cuda_device)
     prep = nn_argmin.prepare_nn_ref_argmin(torch.from_numpy(r).to(cuda_device))
     idx_p, sq_p = (t.cpu().numpy() for t in nn_argmin.nn_argmin_plain(qd, prep))

@@ -34,6 +34,7 @@ import torch
 from mapping_private_tpu_torch import _build
 from mapping_private_tpu_torch.core.cloud import PAD_COORD
 from mapping_private_tpu_torch.ops import nn_gather, nn_search
+from mapping_private_tpu_torch.utils.metrics import metrics
 
 EPS = np.finfo(np.float32).eps
 W = nn_gather.TIE_WINDOW
@@ -313,12 +314,12 @@ def test_wrapper_rejects_bad_inputs(bad):
 
 
 def test_cpu_never_counts_a_launch_and_empty_queries():
-    before = nn_gather.launches
+    before = metrics.counters["nn_gather.launches"]
     q, r, a = _random(0, 20, 6)
     sq, qs, ns = _port(q, r, a, "vpu")
     assert sq.shape == (0,) and qs.shape == ns.shape == (0, 3)
     _port(*_random(10, 20, 6), "mxu")
-    assert nn_gather.launches == before
+    assert metrics.counters["nn_gather.launches"] == before
 
 
 @pytest.fixture
@@ -338,10 +339,10 @@ def test_kernel_matches_plain_on_card(case, dist, cuda_device):
         q, r, a = _random(1, 5, 11)
     else:
         q, r, a = CASES[case]()
-    before = nn_gather.launches
+    before = metrics.counters["nn_gather.launches"]
     sq_k, qs_k, ns_k = _port(q, r, a, dist, cuda_device)
     torch.cuda.synchronize()
-    assert nn_gather.launches == before + 1
+    assert metrics.counters["nn_gather.launches"] == before + 1
     rt, nt = nn_gather.prepare_nn_ref(torch.from_numpy(r).to(cuda_device), torch.from_numpy(a).to(cuda_device))
     sq_p, qs_p, ns_p = (t.cpu().numpy() for t in nn_gather.nn_gather_plain(
         torch.from_numpy(q).to(cuda_device), rt, nt, dist))

@@ -21,6 +21,7 @@ import torch
 
 from mapping_private_tpu_torch.core.cloud import PAD_COORD
 from mapping_private_tpu_torch.ops import nn_matmul, nn_search
+from mapping_private_tpu_torch.utils.metrics import metrics
 
 EPS = np.finfo(np.float32).eps
 
@@ -157,11 +158,11 @@ def test_wrapper_rejects_bad_inputs(bad):
 
 
 def test_cpu_never_counts_a_launch_and_empty_queries():
-    before = nn_matmul.launches
+    before = metrics.counters["nn_matmul.launches"]
     idx, sq = _port(*_random(0, 20, 9))
     assert idx.shape == (0,) and sq.shape == (0,)
     _port(*_random(10, 20, 9))
-    assert nn_matmul.launches == before
+    assert metrics.counters["nn_matmul.launches"] == before
 
 
 @pytest.fixture
@@ -180,10 +181,10 @@ def test_kernel_matches_plain_on_card(case, cuda_device):
         q, r = _random(1, 5, 11)
     else:
         q, r = CASES[case]()
-    before = nn_matmul.launches
+    before = metrics.counters["nn_matmul.launches"]
     idx_k, sq_k = _port(q, r, cuda_device)
     torch.cuda.synchronize()
-    assert nn_matmul.launches == before + 1
+    assert metrics.counters["nn_matmul.launches"] == before + 1
     idx_p, sq_p = (t.cpu().numpy() for t in nn_matmul.nn_matmul_plain(
         torch.from_numpy(q).to(cuda_device), torch.from_numpy(r).to(cuda_device)))
     # the same f32 operations in the same order, no FMA contraction
