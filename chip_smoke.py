@@ -9,7 +9,7 @@ CUDA toolkit (nvcc):
 Phases (any failure exits non-zero before the result line):
 
 1. Card and build: the card's name and power limit from nvidia-smi, then
-   all three kernels (nn_argmin, nn_matmul, nn_gather) built from csrc/
+   all four kernels (nn_argmin, nn_matmul, nn_gather, knn_kbest) built from csrc/
    with nvcc, one process per source, started together (time and ptxas
    report for each: registers, shared memory, spills).
 2. Each kernel against its plain PyTorch version on the card: 20,000 x
@@ -38,6 +38,12 @@ Phases (any failure exits non-zero before the result line):
    200,000 (nn_1nn's brute engine): first held against the plain version
    there (indices equal, d2 bit for bit), then its kernel time, bound and
    the number of ref stretches that the launch made.
+   knn_kbest (the denoise's k smallest distances) against its plain
+   version bit for bit: phase 7's frame through the pipeline's box (~97,200
+   live of 307,200 rows) at k = 20, 1 and K_MAX, and ragged sizes at every
+   edge of its buckets, n at or below k included; then its time and the
+   plain version's at the frame, k = 20, beside the bound (9 FP32 slots a
+   pair: the distance and one compare against the k-th best).
 3. The registration path: a chain of 4 synthetic 20,000-point scans
    (bench.py's surface and step sizes) written as PCD files and registered
    with ``mapping_private_tpu_torch.apps.icp_register.main([... "--device",
@@ -311,7 +317,7 @@ HBM_BYTES_PER_S = 3.35e12
 # + 3 add + 1 fma) and one min, since the least of N numbers takes N - 1 of
 # them.  The index, the ties and the gather are per query, not per pair.
 SLOTS_PER_PAIR = {"nn_argmin": 9, "nn_matmul": 8, "nn_gather:vpu": 9,
-                  "nn_gather:mxu": 8, "nn_gather:mxu_fast": 8}
+                  "nn_gather:mxu": 8, "nn_gather:mxu_fast": 8, "knn_kbest": 9}
 # Until the kernels' redesign the bound counted a compare and a select per
 # pair in place of the min (what the first loops issued); shares by that
 # count are printed in brackets beside the new ones, to compare with
@@ -321,6 +327,8 @@ KERNEL_FILES = {
     "nn_argmin": ("mapping_private_tpu_torch/csrc/nn_argmin.cu", "mapping_private_tpu/ops/pallas_nn.py:245"),
     "nn_matmul": ("mapping_private_tpu_torch/csrc/nn_matmul.cu", "mapping_private_tpu/ops/pallas_nn.py:38"),
     "nn_gather": ("mapping_private_tpu_torch/csrc/nn_gather.cu", "mapping_private_tpu/ops/pallas_nn.py:110"),
+    "knn_kbest": ("mapping_private_tpu_torch/csrc/knn_kbest.cu",
+                  "none: the denoise's dense top_k (mapping_private_tpu/ops/neighbors.py::knn_bruteforce)"),
 }
 
 
@@ -2531,7 +2539,7 @@ def main(argv=None) -> int:
     from mapping_private_tpu_torch.core.cloud import PAD_COORD, PointCloud
     from mapping_private_tpu_torch.core.se3 import se3_exp
     from mapping_private_tpu_torch.io.pcd import load_pcd, save_pcd
-    from mapping_private_tpu_torch.ops import nn_argmin, nn_gather, nn_matmul, nn_search
+    from mapping_private_tpu_torch.ops import knn_kbest, nn_argmin, nn_gather, nn_matmul, nn_search
     from mapping_private_tpu_torch.ops.nn_dispatch import nn_1nn
     from mapping_private_tpu_torch.ops.normals import estimate_normals
     from mapping_private_tpu_torch.registration.icp import (
@@ -2541,7 +2549,7 @@ def main(argv=None) -> int:
 
     dev = torch.device("cuda")
     to_dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
-    nn_kernels = ("nn_argmin", "nn_matmul", "nn_gather")  # each counts its launches as "<name>.launches"
+    nn_kernels = ("nn_argmin", "nn_matmul", "nn_gather", "knn_kbest")  # each counts its launches as "<name>.launches"
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
 
@@ -2755,6 +2763,45 @@ def main(argv=None) -> int:
         print(f"nn_argmin {label}: {n_str} ref stretches, kernel {ms:.4f} ms (turns {[round(x, 4) for x in turns]}), "
               f"bound {b_ms:.4f} ms by {b_by} ({b_ms / ms:.3f} of the kernel's time [{before_ms / ms:.3f} by the "
               f"earlier count of {SLOTS_PER_PAIR_BEFORE['nn_argmin']} slots a pair]) [{smi}]", flush=True)
+
+    # knn_kbest: the tabletop frame's live rows, then ragged sizes at its bucket edges
+    frame_np, _ = tabletop_frame(args.seed)
+    in_box = ((frame_np >= np.asarray(TABLE_BOX[:3])) & (frame_np <= np.asarray(TABLE_BOX[3:]))).all(1)
+    live_np = frame_np[in_box]
+    rng = np.random.default_rng(9)
+    edges = sorted({1, knn_kbest.K_MAX} | {e + d for e in range(knn_kbest.K_STEP, knn_kbest.K_MAX, knn_kbest.K_STEP)
+                                          for d in (0, 1)})
+    kbest_cases = [(f"tabletop_frame_{len(live_np)}_live", live_np, [20, 1, knn_kbest.K_MAX]),
+                   ("ragged_5003", rng.uniform(-1, 1, (5003, 3)).astype(np.float32), edges),
+                   ("below_k_17", rng.uniform(-1, 1, (17, 3)).astype(np.float32), [1, 16, 17, 20, knn_kbest.K_MAX])]
+    max_abs_err = 0.0
+    for name, pts_np, ks in kbest_cases:
+        kt = nn_argmin.prepare_nn_ref_argmin(to_dev(pts_np))
+        for k in ks:
+            got = knn_kbest.knn_kbest(kt, k)
+            torch.cuda.synchronize()
+            want = knn_kbest.knn_kbest_plain(kt, k)
+            n_bits = int((got.view(torch.int32) != want.view(torch.int32)).sum())
+            gap = torch.where(got == want, 0.0, (got.double() - want.double()).abs())  # inf == inf reads 0
+            err = float(gap.max()) if gap.numel() else 0.0
+            max_abs_err = max(max_abs_err, err)
+            msg = f"knn_kbest {name} k={k}: sq bit mismatches {n_bits}, max|dsq| {err:.3g}"
+            if k in (1, 20, knn_kbest.K_MAX):
+                print(msg, flush=True)
+            if n_bits:
+                fail(msg)
+    print(f"knn_kbest: {sum(len(ks) for _, _, ks in kbest_cases)} cases bit for bit", flush=True)
+    results["knn_kbest"] = {"max_abs_err": max_abs_err, "stretches": None}  # it never splits the refs
+    kt = nn_argmin.prepare_nn_ref_argmin(to_dev(live_np))
+    ms, p_ms, kern, plain = time_turns(torch, lambda: knn_kbest.knn_kbest(kt, 20),
+                                       lambda: knn_kbest.knn_kbest_plain(kt, 20))
+    n_live = len(live_np)
+    b_ms, b_by, _ = bound_ms("knn_kbest", n_live, n_live, 4 * (3 * n_live + 20 * n_live), sm_clock_hz)
+    results["knn_kbest"].update(ms=ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by)
+    print(f"knn_kbest {n_live} live points, k=20: kernel {ms:.4f} ms (turns {[round(x, 4) for x in kern]}), plain "
+          f"{p_ms:.4f} ms (turns {[round(x, 4) for x in plain]}), bound {b_ms:.4f} ms by {b_by} "
+          f"({b_ms / ms:.3f} of the kernel's time) [{smi}]", flush=True)
+    del kt, got, want
 
     launches = {name: {} for name in results}  # kernel -> {path: count}
 
@@ -3010,11 +3057,18 @@ def main(argv=None) -> int:
         print(f"scan {k}: {1e3 * (t2 - t0):.2f} ms wall (normals k=12 {1e3 * (t1 - t0):.2f} ms, track "
               f"{1e3 * (t2 - t1):.2f} ms{', keyframe' if kf else ''}) [{smi}]")
 
+    def kbest_launches(path, phase):
+        before = metrics.counters["knn_kbest.launches"]
+        phase()
+        launches["knn_kbest"][path] = metrics.counters["knn_kbest.launches"] - before
+
     # -- phase 7: the tabletop slice -------------------------------------------
-    phase_tabletop(torch, dev, smi, args.seed)
+    kbest_launches("tabletop (phase 7)", lambda: phase_tabletop(torch, dev, smi, args.seed))
+    if launches["knn_kbest"]["tabletop (phase 7)"] < TABLE_FRAMES:
+        fail(f"the tabletop's denoise launched knn_kbest {launches['knn_kbest']['tabletop (phase 7)']} times")
 
     # -- phase 8: the structural scenes ----------------------------------------
-    phase_structural(torch, dev, smi, args.seed)
+    kbest_launches("structural, cloud_ops (phase 8)", lambda: phase_structural(torch, dev, smi, args.seed))
 
     # -- phase 9: object recognition and classification -------------------------
     phase_recognition(torch, dev, smi, args.seed)
@@ -3023,7 +3077,7 @@ def main(argv=None) -> int:
     phase_sharded(torch, dev, smi, args.seed, sm_clock_hz, results, launches)
 
     # -- phase 11: Hough segmentation ---------------------------------------------
-    phase_hough(torch, dev, smi, args.seed)
+    kbest_launches("hough (phase 11)", lambda: phase_hough(torch, dev, smi, args.seed))
 
     # -- phase 12: the robot self-filter path (no NN kernel lies on it) ------------
     reset_counts()

@@ -39,6 +39,8 @@ KERNELS = {
     # q, nq, rt, nr, stretch, rows, part_d, part_i, n_counters, counters, mode, nt, sq, q_sel,
     # n_sel, stream
     "nn_gather": [_VP, _CI, _VP, _CI, _CI, _CI, _VP, _VP, _CI, _VP, _CI, _VP, _VP, _VP, _VP, _VP],
+    # rt, n, k, out, stream
+    "knn_kbest": [_VP, _CI, _CI, _VP, _VP],
 }
 
 

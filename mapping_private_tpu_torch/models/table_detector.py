@@ -13,6 +13,12 @@ together, as one batch over the candidate axis (the JAX package vmaps a
 per-candidate fit), and so are the objects' statistics.  The only host
 reads are the convergence tests of the two label propagations.
 
+The k-NN searches (normals, both clusterings) rank by direct differences,
+not the JAX package's matmul form: at a table 0.8 m from the sensor the
+matmul form's float32 rounding swaps neighbours whose d² lie within ~5e-5
+of each other, and a voxel's normal, with it the candidates and the
+plane, then follows its centroid's last bits.
+
 Default parameters are the reference's ROS defaults (constructor
 :150-210): leaf 0.03, k=10, eps_angle 15°, region angle 30°, cluster
 tolerance 0.5 m / min 10 points, object tolerance 0.05 m / min 30 points,
@@ -125,7 +131,7 @@ def detect_table(
 
         with metrics.span("detect_table.candidates"):
             # 3. normals (:392)
-            down = estimate_normals(down, k=cfg.k_normals, viewpoint=torch.zeros(3, device=dev))
+            down = estimate_normals(down, k=cfg.k_normals, viewpoint=torch.zeros(3, device=dev), direct=True)
             normals = down.channel("normal")
             xyz = down.padded_xyz()
 
@@ -134,7 +140,8 @@ def detect_table(
 
             # 5. cluster candidate surface points (:401)
             labels = euclidean_cluster(xyz, cand_mask, cfg.clusters_growing_tolerance, k=cfg.cluster_knn,
-                                       normals=normals, angle_threshold=cfg.region_angle_threshold)
+                                       normals=normals, angle_threshold=cfg.region_angle_threshold,
+                                       direct=True)
             members, _ = top_clusters(labels, cand_mask, cfg.max_table_candidates,
                                       min_size=cfg.clusters_min_pts)
 
@@ -175,7 +182,8 @@ def detect_table(
             above &= in_radial_hull(hull, proj[:, :2])
 
             # 9. cluster objects
-            obj_labels = euclidean_cluster(xyz, above, cfg.object_cluster_tolerance, k=cfg.cluster_knn)
+            obj_labels = euclidean_cluster(xyz, above, cfg.object_cluster_tolerance, k=cfg.cluster_knn,
+                                           direct=True)
             obj_masks, obj_sizes = top_clusters(obj_labels, above, cfg.max_objects,
                                                 min_size=cfg.object_cluster_min_pts)
 

@@ -100,7 +100,10 @@ def _reconstruct_object(points: np.ndarray, generator: Optional[torch.Generator]
     :843-1000): MLS smoothing (with its normals) → cylinder fit against a
     robust box fit; the cylinder wins above 80% inliers.  The cylinder's
     RANSAC draws (CYLINDER_HYPOTHESES, 2) uniforms from ``generator`` or
-    takes them as ``u``."""
+    takes them as ``u``.  The MLS ranks neighbours by direct differences,
+    as the detector does: the matmul form's float32 rounding swaps
+    near-tied neighbours of the voxel grid and tilts the normals the
+    cylinder is fitted to."""
     center = points.mean(0)
     obj = TableObject(center=center, points=points)
     if len(points) < 12:
@@ -108,7 +111,7 @@ def _reconstruct_object(points: np.ndarray, generator: Optional[torch.Generator]
         obj.fit_quality = 0.0
         return obj
     cloud = mls(PointCloud.from_numpy(points.astype(np.float32), device=device),
-                search_radius=0.02, k=16)
+                search_radius=0.02, k=16, direct=True)
     cyl, inl = fit_cylinder_ransac(
         cloud.padded_xyz(), cloud.channel("normal"), cloud.mask, generator,
         num_hypotheses=CYLINDER_HYPOTHESES, threshold=sac_threshold, max_radius=0.5, u=u,

@@ -35,18 +35,20 @@ def radius_graph(
     cap_per_cell: int = 16,
     normals: Optional[torch.Tensor] = None,
     angle_threshold: Optional[float] = None,
+    direct: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(N,k) neighbour indices + validity for edges within ``tolerance``.
 
     With ``normals`` and ``angle_threshold`` an edge also needs
     angle(n_i, n_j) < threshold, sign-agnostic (the reference's
-    region_angle_threshold)."""
+    region_angle_threshold).  ``direct``: the brute search ranks by
+    direct differences (``knn_bruteforce``)."""
     if use_grid:
         grid = build_grid_hash(xyz, mask, tolerance)
         self_idx = torch.arange(xyz.shape[0], dtype=torch.int32, device=xyz.device)
         idx, sq = knn_grid(grid, xyz, k=k, cap_per_cell=cap_per_cell, self_idx=self_idx)
     else:
-        idx, sq = knn_bruteforce(xyz, xyz, mask, k=k, exclude_self=True)
+        idx, sq = knn_bruteforce(xyz, xyz, mask, k=k, exclude_self=True, direct=direct)
     valid = (idx >= 0) & (sq <= tolerance * tolerance) & mask[:, None]
     if normals is not None and angle_threshold is not None:
         nb = normals[torch.clamp_min(idx, 0).long()]  # (N,k,3)
@@ -97,11 +99,12 @@ def euclidean_cluster(
     use_grid: bool = False,
     normals: Optional[torch.Tensor] = None,
     angle_threshold: Optional[float] = None,
+    direct: bool = False,
 ) -> torch.Tensor:
     """Cluster labels (N,) int32: the least point index in the component;
     dead rows get N."""
     idx, valid = radius_graph(xyz, mask, tolerance, k=k, use_grid=use_grid,
-                              normals=normals, angle_threshold=angle_threshold)
+                              normals=normals, angle_threshold=angle_threshold, direct=direct)
     init = torch.arange(xyz.shape[0], dtype=torch.int32, device=xyz.device)
     return propagate_labels(init, idx, valid, mask)
 

@@ -11,7 +11,9 @@ Counterpart of ``mapping_private_tpu/ops/filters.py``:
   wall_filter.cpp:228), the height band, channel equality and the depth
   limit of the training-capture tool.
 
-All filters are mask transforms: shapes stay, nothing is compacted.
+All filters are mask transforms: shapes stay.  Inside the statistical
+filter the live rows are compacted for the search, and its mask is over
+every row.
 Angle thresholds are taken in float32, as the JAX package takes them.
 """
 from __future__ import annotations
@@ -22,6 +24,7 @@ import torch
 
 from mapping_private_tpu_torch.core.cloud import PointCloud
 from mapping_private_tpu_torch.core.linalg import f32_of
+from mapping_private_tpu_torch.ops.knn_kbest import K_MAX, knn_kbest, live_rows
 from mapping_private_tpu_torch.ops.neighbors import build_grid_hash, knn_bruteforce, knn_grid
 from mapping_private_tpu_torch.utils.metrics import metrics
 
@@ -39,22 +42,26 @@ def statistical_outlier_mask(
     Per point: mean distance to its k nearest live neighbours (self
     excluded, as noise_removal.cpp:104 skips index 0).  Globally: keep
     |d_i − mean| < alpha · std over the live points (noise_removal.cpp:130).
-    Brute force runs over every row of ``xyz``, dead ones included.
+    Brute force searches the live rows only, through ``knn_kbest`` (the
+    kernel on the card) for k ≤ K_MAX; a larger k runs over every row of
+    ``xyz``, dead ones included.
     """
     if use_grid:
         grid = build_grid_hash(xyz, mask, cell_size)
         self_idx = torch.arange(xyz.shape[0], dtype=torch.int32, device=xyz.device)
         idx, sq = knn_grid(grid, xyz, k=k, self_idx=self_idx)
+        avg = _mean_dist(sq, (idx >= 0) & torch.isfinite(sq))
+    elif k <= K_MAX:
+        rows, rt = live_rows(xyz, mask)
+        _count_pairs(rows.shape[0], mask)
+        with metrics.span("knn"):
+            sq = knn_kbest(rt, k)
+        avg = torch.zeros(xyz.shape[0], dtype=torch.float32, device=xyz.device)
+        avg.index_put_((rows,), _mean_dist(sq, torch.isfinite(sq)))
     else:
-        # every row against every ref: the pairs of two live points are the useful ones
-        metrics.count("denoise.pairs", xyz.shape[0] * xyz.shape[0])
-        if metrics.on():
-            metrics.count("denoise.live_pairs", torch.sum(mask, dtype=torch.int64) ** 2)
+        _count_pairs(xyz.shape[0], mask)
         idx, sq = knn_bruteforce(xyz, xyz, mask, k=k, exclude_self=True)
-    valid = (idx >= 0) & torch.isfinite(sq)
-    d = torch.where(valid, torch.sqrt(torch.clamp_min(sq, 0.0)), 0.0)
-    cnt = torch.clamp_min(torch.sum(valid, dim=1, dtype=torch.float32), 1.0)
-    avg = torch.sum(d, dim=1) / cnt  # (N,)
+        avg = _mean_dist(sq, (idx >= 0) & torch.isfinite(sq))
 
     live = mask.to(torch.float32)
     n_live = torch.clamp_min(torch.sum(live), 1.0)
@@ -62,6 +69,22 @@ def statistical_outlier_mask(
     var = torch.sum(avg * avg * live) / n_live - mean * mean
     std = torch.sqrt(torch.clamp_min(var, 0.0))
     return mask & (torch.abs(avg - mean) < alpha * std)
+
+
+def _count_pairs(searched: int, mask: torch.Tensor) -> None:
+    """The brute search's pairs (``searched`` rows against as many), and
+    of those the ones that join two live points."""
+    metrics.count("denoise.pairs", searched * searched)
+    if metrics.on():
+        metrics.count("denoise.live_pairs", torch.sum(mask, dtype=torch.int64) ** 2)
+
+
+def _mean_dist(sq: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """(N, k) squared distances -> (N,) mean distance over the valid slots
+    (0 where none is)."""
+    d = torch.where(valid, torch.sqrt(torch.clamp_min(sq, 0.0)), 0.0)
+    cnt = torch.clamp_min(torch.sum(valid, dim=1, dtype=torch.float32), 1.0)
+    return torch.sum(d, dim=1) / cnt
 
 
 def remove_statistical_outliers(

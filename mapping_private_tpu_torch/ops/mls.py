@@ -41,6 +41,7 @@ def mls_smooth(
     polynomial_order: int = 2,
     sqr_gauss_param: Optional[float] = None,
     use_grid: bool = False,
+    direct: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """MLS-projected positions, normals and curvatures.
 
@@ -50,6 +51,8 @@ def mls_smooth(
       k: neighbour fan-out (the point itself included).
       polynomial_order: 0 or 1 (plane projection only) or 2 (full MLS).
       sqr_gauss_param: Gaussian weight scale; defaults to radius².
+      direct: the brute search ranks by direct differences
+        (``knn_bruteforce``).
 
     Returns (new_xyz (N,3), normals (N,3), curvature (N,)).
     """
@@ -58,7 +61,7 @@ def mls_smooth(
     if use_grid:
         idx, sq = knn_grid(build_grid_hash(xyz, mask, search_radius), xyz, k=k)
     else:
-        idx, sq = knn_bruteforce(xyz, xyz, mask, k=k, exclude_self=False)
+        idx, sq = knn_bruteforce(xyz, xyz, mask, k=k, exclude_self=False, direct=direct)
     valid = (idx >= 0) & mask[:, None]
     pts = xyz[torch.clamp_min(idx, 0).long()]  # (N, k, 3)
     w = torch.where(valid, torch.exp(-sq / sqr_gauss_param), 0.0)  # (N, k)

@@ -3,10 +3,11 @@
 Counterpart of ``mapping_private_tpu/ops/neighbors.py``.
 
 1. ``knn_bruteforce`` — exact kNN over a dense squared distance matrix
-   (‖a‖² + ‖b‖² − 2a·bᵀ, one matmul), sized for the reference's cloud
-   sizes (≤ ~50k points).  The matrix is built a block of query rows at a
-   time, so a 20k×20k (1.6 GB) or 50k×50k one is never held whole on the
-   device.
+   (‖a‖² + ‖b‖² − 2a·bᵀ, one matmul, as the JAX package ranks; or, with
+   ``direct``, (dx² + dy²) + dz² from direct differences), sized for the
+   reference's cloud sizes (≤ ~50k points).  The matrix is built a block
+   of query rows at a time, so a 20k×20k (1.6 GB) or 50k×50k one is never
+   held whole on the device.
 2. ``build_grid_hash`` / ``nn_grid_1nn`` / ``knn_grid`` /
    ``radius_count_grid`` — points sorted by a 30-bit packed cell key (10
    bits per axis, wrap-around mod 1024; aliasing only ever adds
@@ -41,12 +42,25 @@ def pairwise_sq_dists(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.clamp_min(a2 + b2 - 2.0 * (a @ b.T), 0.0)
 
 
+def direct_sq_dists(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(Q,3),(N,3) -> (Q,N) squared Euclidean distances (dx² + dy²) + dz²
+    from direct differences.  Its rounding is relative to the distance,
+    where the matmul form's is relative to ‖a‖² + ‖b‖²: at 0.8 m from the
+    origin the matmul form misranks 3 cm neighbours whose d² lie within
+    ~5e-5 of each other, this one within ~2e-7."""
+    dx = a[:, 0, None] - b[None, :, 0]
+    dy = a[:, 1, None] - b[None, :, 1]
+    dz = a[:, 2, None] - b[None, :, 2]
+    return dx * dx + dy * dy + dz * dz
+
+
 def knn_bruteforce(
     query_xyz: torch.Tensor,
     ref_xyz: torch.Tensor,
     ref_mask: torch.Tensor,
     k: int,
     exclude_self: bool = False,
+    direct: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact kNN over a dense distance matrix.
 
@@ -56,6 +70,7 @@ def knn_bruteforce(
       ref_mask: (N,) bool; dead refs never returned.
       k: neighbour count.
       exclude_self: if True, assumes query i == ref i and masks the diagonal.
+      direct: rank by ``direct_sq_dists`` instead of the matmul form.
 
     Returns:
       idx: (Q, k) int32, −1 where fewer than k live refs exist.
@@ -63,10 +78,11 @@ def knn_bruteforce(
     """
     q, n = query_xyz.shape[0], ref_xyz.shape[0]
     rows = max(1, _CHUNK_ELEMS // max(n, 1))
+    sq_dists = direct_sq_dists if direct else pairwise_sq_dists
     idx_parts, sq_parts = [], []
     with metrics.span("knn"):
         for s in range(0, q, rows):
-            d2 = pairwise_sq_dists(query_xyz[s : s + rows], ref_xyz)
+            d2 = sq_dists(query_xyz[s : s + rows], ref_xyz)
             d2 = d2.masked_fill(~ref_mask[None, :], torch.inf)
             if exclude_self:
                 r = torch.arange(d2.shape[0], device=d2.device)

@@ -102,11 +102,13 @@ def estimate_normals(
     viewpoint: Optional[torch.Tensor] = None,
     use_grid: bool = False,
     cell_size: float = 0.05,
+    direct: bool = False,
 ) -> PointCloud:
     """Attach 'normal' (N,3) and 'curvature' (N,) channels from the k
-    nearest other points: brute force, or with ``use_grid`` the grid hash
-    of cell ``cell_size`` (exact when the k-th neighbour lies within one
-    cell and no stencil cell overflows; for large clouds)."""
+    nearest other points: brute force (ranked by direct differences with
+    ``direct``), or with ``use_grid`` the grid hash of cell ``cell_size``
+    (exact when the k-th neighbour lies within one cell and no stencil
+    cell overflows; for large clouds)."""
     with metrics.span("normals"):
         xyz = cloud.padded_xyz()
         if use_grid:
@@ -114,7 +116,7 @@ def estimate_normals(
             self_idx = torch.arange(xyz.shape[0], dtype=torch.int32, device=xyz.device)
             idx, _ = knn_grid(grid, xyz, k=k, self_idx=self_idx)
         else:
-            idx, _ = knn_bruteforce(xyz, xyz, cloud.mask, k=k, exclude_self=True)
+            idx, _ = knn_bruteforce(xyz, xyz, cloud.mask, k=k, exclude_self=True, direct=direct)
         valid = (idx >= 0) & cloud.mask[:, None]
         nrm, curv = normals_from_neighbors(xyz, idx, valid, viewpoint)
         return cloud.with_channel("normal", nrm).with_channel("curvature", curv)

@@ -5,7 +5,10 @@ Counterpart of ``mapping_private_tpu/ops/voxel.py`` (the reference's
 sort stably by a packed cell key; runs of equal keys become output slots
 (cumsum of run-start flags); coordinates and channels are summed into the
 fixed-capacity output with ``index_add_`` into ``out_capacity + 1`` rows,
-the last one a spill row for points past the capacity.  Output rows are in
+the last one a spill row for points past the capacity.  ``voxel_downsample``
+sums in float64 and rounds each mean to float32 once: the centroid is then
+the nearest float32 to the exact mean, whatever order the card's atomic
+adds take, where float32 sums move it by up to ~4e-7 m from run to run.  Output rows are in
 ascending key order, as in the JAX package, and carry a ``vox_count``
 channel.
 
@@ -70,13 +73,13 @@ def voxel_downsample(cloud: PointCloud, voxel_size: float, out_capacity: int) ->
     slot = torch.cumsum(first, 0, dtype=torch.int64) - 1
     slot = torch.where(live & (slot < out_capacity), slot, out_capacity)  # spill row
 
-    sums = torch.zeros((out_capacity + 1, vals.shape[1]), dtype=torch.float32, device=dev)
-    sums.index_add_(0, slot, torch.where(live[:, None], vals[order], 0.0))
+    sums = torch.zeros((out_capacity + 1, vals.shape[1]), dtype=torch.float64, device=dev)
+    sums.index_add_(0, slot, torch.where(live[:, None], vals[order], 0.0).to(torch.float64))
     cnt = torch.zeros((out_capacity + 1,), dtype=torch.int32, device=dev)
     cnt.index_add_(0, slot, live.to(torch.int32))
     sums, cnt = sums[:out_capacity], cnt[:out_capacity]
 
-    mean = sums / torch.clamp_min(cnt, 1).to(torch.float32)[:, None]
+    mean = (sums / torch.clamp_min(cnt, 1).to(torch.float64)[:, None]).to(torch.float32)
     out_mask = cnt > 0
     out_xyz = torch.where(out_mask[:, None], mean[:, :3], PAD_COORD)
     channels = _channels(mean, layout)

@@ -2,9 +2,11 @@
 inputs (tests/test_icp.py's bumpy surface with scattered outliers, dead
 rows included).
 
-The statistical filter ranks neighbours over matmul-form distances,
-which the two libraries may round differently; on these clouds no point's
-mean distance lies near the gate, and its keep-masks must be identical.
+The statistical filter ranks neighbours over matmul-form distances in
+the JAX package and over direct differences in the port (its k-best
+search over the live rows), which round differently; on these clouds no
+point's mean distance lies near the gate, and its keep-masks must be
+identical.
 Every other mask must be identical too: the same f32 comparisons, with
 angle thresholds taken in f32 on both sides (a normal placed exactly on
 the f32 cosine of the gate is kept by both; at 15°, the table detector's

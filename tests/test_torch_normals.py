@@ -117,6 +117,34 @@ def test_pairwise_sq_dists_matches():
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("jitter", [1e-6, 1e-5])
+def test_direct_knn_ranks_near_ties_as_float64_does(jitter):
+    """``direct``: a 3 cm grid of voxel centroids on a table 0.8 m out,
+    jittered so that neighbours of one ring lie within ~1e-4 of each
+    other in d².  Direct differences give every row whose k-th and
+    (k+1)-th float64 distances part by more than 1e-6 the float64
+    neighbour set, and d² by the float32 formula exactly; the matmul form
+    swaps neighbours on some of those rows."""
+    rng = np.random.default_rng(0)
+    grid = np.stack(np.meshgrid(np.arange(30), np.arange(20), [0]), -1).reshape(-1, 3) * 0.03
+    p = (grid + np.array([0.2, -0.3, 0.75]) + rng.normal(0, jitter, grid.shape)).astype(np.float32)
+    p64 = p.astype(np.float64)
+    d64 = ((p64[:, None] - p64[None]) ** 2).sum(-1)
+    np.fill_diagonal(d64, np.inf)
+    k = 10
+    want = [set(r[:k]) for r in np.argsort(d64, 1, kind="stable")]
+    srt = np.sort(d64, 1)
+    clear = (srt[:, k] - srt[:, k - 1]) / srt[:, k - 1] > 1e-6
+    x, live = torch.from_numpy(p), torch.ones(len(p), dtype=torch.bool)
+    idx, sq = tnb.knn_bruteforce(x, x, live, k, exclude_self=True, direct=True)
+    same = np.array([set(a) == b for a, b in zip(idx.numpy(), want)])
+    assert clear.sum() > 0.95 * len(p) and same[clear].all()
+    d = p[:, None, :] - p[idx.numpy().astype(np.int64)]
+    np.testing.assert_array_equal(sq.numpy(), (d[..., 0] * d[..., 0] + d[..., 1] * d[..., 1]) + d[..., 2] * d[..., 2])
+    idx_mm, _ = tnb.knn_bruteforce(x, x, live, k, exclude_self=True)
+    assert not all(set(a) == b for a, b in zip(idx_mm.numpy()[clear], np.asarray(want, object)[clear]))
+
+
 def test_estimate_normals_grid_matches():
     """The grid-hash path (``use_grid``): the same stencil candidates on
     both sides, ranked by direct differences, so the neighbour sets agree

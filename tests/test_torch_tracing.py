@@ -17,8 +17,9 @@ from torch.profiler import ProfilerActivity, profile
 from torch.utils._python_dispatch import TorchDispatchMode
 
 import mapping_private_tpu_torch.registration.icp as icp
+from mapping_private_tpu_torch import _build
 from mapping_private_tpu_torch.core.cloud import PointCloud
-from mapping_private_tpu_torch.ops import filters, nn_argmin, nn_gather, nn_matmul, nn_search
+from mapping_private_tpu_torch.ops import filters, knn_kbest, nn_argmin, nn_gather, nn_matmul, nn_search
 from mapping_private_tpu_torch.ops.normals import estimate_normals
 from mapping_private_tpu_torch.utils.metrics import RING, CountRecord, SpanRecord, metrics
 
@@ -158,40 +159,50 @@ def test_records_lie_on_the_traces_clock(fresh):
     assert [r.name for r in fresh.window(rec.start_ns, end)[0]] == ["timed"]
 
 
-def test_denoise_counts_its_pairs_and_live_pairs(fresh):
+def test_denoise_counts_its_pairs_and_live_pairs(monkeypatch, fresh):
     n, live = 64, 40
     rng = np.random.default_rng(3)
     xyz = torch.from_numpy(rng.normal(size=(n, 3)).astype(np.float32))
     mask = torch.zeros(n, dtype=torch.bool)
     mask[rng.permutation(n)[:live]] = True
+    # the brute search runs over the live rows only: the pairs searched are live x live
     filters.statistical_outlier_mask(xyz, mask, k=5)
-    assert fresh.counters["denoise.pairs"] == n * n and "denoise.live_pairs" not in fresh.counters
+    assert fresh.counters["denoise.pairs"] == live * live and "denoise.live_pairs" not in fresh.counters
     assert not fresh.count_records
     with _cpu_profile():
         filters.statistical_outlier_mask(xyz, mask, k=5)
-    assert fresh.counters["denoise.pairs"] == 2 * n * n
+    assert fresh.counters["denoise.pairs"] == 2 * live * live
     live_pairs = fresh.counters["denoise.live_pairs"]
     assert isinstance(live_pairs, torch.Tensor) and int(live_pairs) == live * live
     recs = {r.name: r for r in fresh.count_records}
-    assert recs["denoise.pairs"].value == n * n and int(recs["denoise.live_pairs"].value) == live * live
+    assert recs["denoise.pairs"].value == live * live and int(recs["denoise.live_pairs"].value) == live * live
     assert "denoise.live_pairs" in fresh.report() and f"{live * live:g}" in fresh.report()
     # the grid path visits its stencil, not every pair: nothing counted
     filters.statistical_outlier_mask(xyz, mask, k=5, use_grid=True, cell_size=0.5)
-    assert fresh.counters["denoise.pairs"] == 2 * n * n
+    assert fresh.counters["denoise.pairs"] == 2 * live * live
+    # a k past the kernel's lists keeps the dense search over every row, dead ones included
+    monkeypatch.setattr(filters, "K_MAX", 4)
+    filters.statistical_outlier_mask(xyz, mask, k=5)
+    assert fresh.counters["denoise.pairs"] == 2 * live * live + n * n
 
 
-@pytest.mark.parametrize("kernel", ["nn_argmin", "nn_matmul", "nn_gather"])
+@pytest.mark.parametrize("kernel", ["nn_argmin", "nn_matmul", "nn_gather", "knn_kbest"])
 def test_launch_counters_still_count(monkeypatch, fresh, kernel):
     q, r = torch.zeros(4, 3), torch.zeros(3, 5)
     monkeypatch.setattr(nn_search, "search_index", lambda *a, **k: (torch.zeros(4, dtype=torch.int32), torch.zeros(4)))
     monkeypatch.setattr(nn_search, "search", lambda *a, **k: None)
+    monkeypatch.setattr(_build, "launch", lambda *a, **k: None)
+    monkeypatch.setattr(torch.cuda, "device", lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda d: type("S", (), {"cuda_stream": 0}))
     for _ in range(2):
         if kernel == "nn_argmin":
             nn_argmin._launch(q, r)
         elif kernel == "nn_matmul":
             nn_matmul._launch(q, r.T.contiguous())
-        else:
+        elif kernel == "nn_gather":
             nn_gather._launch(q, r, r, "vpu")
+        else:
+            knn_kbest._launch(r, 3)
     assert fresh.counters[f"{kernel}.launches"] == 2
     assert not fresh.count_records  # counted with tracing off too, with no record kept
 

@@ -3,9 +3,10 @@ clouds (dead rows, negative cells, a 1-D and a 2-D channel).
 
 Rows, masks and ``vox_count`` must be identical: both sides sort by the
 same int32 keys (stably) and count.  Centroids within 1e-6 absolute and
-channel means within 1e-6 relative (1e-4 absolute near 0): on the CPU
-both sum each voxel's rows in sorted order (today they agree bit for
-bit); on the card the port's sums are atomics in any order."""
+channel means within 1e-6 relative (1e-4 absolute near 0): the JAX
+package sums each voxel's rows in float32, the port in float64 (atomics
+in any order on the card), rounding each mean to float32 once, so its
+centroid is the nearest float32 to the exact mean."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -55,6 +56,21 @@ def test_voxel_downsample_matches(voxel, cap):
     _check(jout, tout)
     n_occ = int(np.asarray(jout.mask).sum())
     assert n_occ == min(cap, n_occ) and (cap > 1000) == (n_occ < cap)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_voxel_centroids_are_the_nearest_float32_of_the_exact_mean(seed):
+    _, tc = _clouds(seed=seed)
+    out = tvox.voxel_downsample(tc, 0.1, 4096)
+    xyz, live = tc.xyz.numpy(), tc.mask.numpy()
+    keys = np.floor(xyz[live] / np.float32(0.1)).astype(np.int64)
+    _, inv = np.unique(keys, axis=0, return_inverse=True)
+    sums = np.zeros((inv.max() + 1, 3))
+    np.add.at(sums, inv.ravel(), xyz[live].astype(np.float64))
+    want = (sums / np.bincount(inv.ravel())[:, None]).astype(np.float32)
+    got = out.xyz.numpy()[out.mask.numpy()]
+    order = lambda a: a[np.lexsort(a.T)]  # noqa: E731  (rows in the same order on both sides)
+    np.testing.assert_array_equal(order(got), order(want))
 
 
 @pytest.mark.parametrize("cap", [2048, 100])
