@@ -1,14 +1,13 @@
 """The readers of the port's own spans and counters on a synthetic trace:
-``icp_host_ms``, ``icp_gn_idle_ms``, ``denoise_live_pairs`` and
-``table_memory_host_reads``.  Each picks the profiled window's records by
-the trace's clock and returns None where there is nothing to read."""
+``icp_host_ms``, ``icp_gn_idle_ms`` and ``table_memory_host_reads``.  Each
+picks the profiled window's records by the trace's clock and returns None
+where there is nothing to read."""
 import collections
 
 import pytest
-import torch
 
 from perfbench import harness
-from mapping_private_tpu_torch.utils.metrics import RING, CountRecord, SpanRecord, metrics
+from mapping_private_tpu_torch.utils.metrics import RING, SpanRecord, metrics
 
 MS = 1_000_000  # ns
 T0 = 1_800_000_000 * 10**9  # a Unix-epoch stamp, as the profiler's clock gives
@@ -58,24 +57,6 @@ def test_icp_gn_idle_ms_reads_the_innermost_spans_idle():
     assert reader("icp_gn_idle_ms")(harness.Trace({}, {}, None)) is None
 
 
-def test_denoise_live_pairs_is_the_windows_ratio(records):
-    _, counts = records
-    n, live = 307_200, 97_200
-    kernels = [(T0, 1e-3, "k"), (T0 + 3_000 * MS, 1e-3, "k")]
-    counts.extend([
-        CountRecord("denoise.pairs", n * n, T0 - 10 * MS),  # before the window
-        CountRecord("denoise.live_pairs", torch.tensor(10, dtype=torch.int64), T0 - 10 * MS),
-        CountRecord("denoise.pairs", n * n, T0 + 5 * MS),
-        CountRecord("denoise.live_pairs", torch.tensor(live, dtype=torch.int64) ** 2, T0 + 5 * MS),
-    ])
-    tr = harness.Trace({}, {}, profile(kernels, frames=1))
-    assert reader("denoise_live_pairs")(tr) == pytest.approx(100.0 * live * live / (n * n))
-    counts.pop()  # the pairs counted with tracing off: no live count, no reading
-    assert reader("denoise_live_pairs")(tr) is None
-    counts.clear()
-    assert reader("denoise_live_pairs")(tr) is None
-
-
 def test_table_memory_host_reads_counts_copies_inside_the_span(records):
     spans, _ = records
     a, b = T0 + 100 * MS, T0 + 200 * MS
@@ -99,6 +80,6 @@ def test_table_memory_host_reads_counts_copies_inside_the_span(records):
 def test_the_new_metrics_are_declared_for_their_cells():
     bench = harness.load_bench()
     want = {"icp_host_ms": "scan20k.pairs", "icp_gn_idle_ms": "scan20k.pairs",
-            "denoise_live_pairs": "tabletop.frames", "table_memory_host_reads": "tabletop.frames"}
+            "table_memory_host_reads": "tabletop.frames"}
     got = {m["name"]: m["workloads"] for m in bench["per_layer"] if m["name"] in want}
     assert got == {k: [v] for k, v in want.items()}

@@ -57,3 +57,22 @@ def test_a_cylinder_tie_takes_the_judged_axis_only_within_its_tolerance(monkeypa
     loose = REF.cylinder(p, nrm, u, 0.01, tilted)
     assert loose[4] > 0.0
     assert abs(float(np.dot(loose[1], tilted))) > abs(float(np.dot(best[1], tilted)))
+
+
+def test_a_cylinder_tie_at_float32_rounding_is_followed_and_a_wider_gap_is_not(monkeypatch):
+    # the case read on an H100 (seed 3172000012, window frame 230): the
+    # judged pick 6.7e-5 of the best score short of it, a gap that rounding
+    # the object's centroids to float32 opens; a gap of 5e-4 is a worse fit
+    # and stands
+    g = torch.Generator().manual_seed(SEED)
+    p = torch.rand((200, 3), generator=g, dtype=torch.float64) * 0.1
+    nrm = torch.nn.functional.normalize(torch.randn((200, 3), generator=g, dtype=torch.float64), dim=1)
+    score = torch.tensor([100.0, 100.0 * (1 - 6.7e-5), 100.0 * (1 - 5e-4)], dtype=torch.float64)
+    axes = torch.eye(3, dtype=torch.float64)
+    hyps = (score, axes, torch.zeros((3, 3), dtype=torch.float64), torch.full((3,), 0.05, dtype=torch.float64))
+    monkeypatch.setattr(REF, "cylinder_hypotheses", lambda *a: hyps)
+    u = torch.zeros((3, 2))
+    near = REF.cylinder(p, nrm, u, 0.01, axes[1].numpy())
+    assert np.allclose(near[1], axes[1].numpy()) and near[4] == pytest.approx(6.7e-5)
+    far = REF.cylinder(p, nrm, u, 0.01, axes[2].numpy())
+    assert not np.allclose(far[1], axes[2].numpy()) and far[4] <= REF.CYL_TIE
