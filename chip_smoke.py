@@ -206,7 +206,9 @@ Phases (any failure exits non-zero before the result line):
    true surface, at the centroid of that surface's pixels among its
    inliers, within 5 mm; the CPU's planes
    within 1e-4, labels equal on 99.9%; ``segment_normal_image`` (card
-   and CPU labels equal on 99.9%, components and sweeps printed);
+   and CPU labels equal on 99.9%, the card's equal to scipy's exact
+   components of the same "normals agree" graph, components and rounds
+   printed);
    ``boxlist_ray_intersection`` at 640 x 480 against the 50 boxes of a
    100-entity semantic map written here (ids equal to the CPU's, depth
    within 1e-6; the empty list misses everywhere); VTK and DXF round trips
@@ -2237,6 +2239,7 @@ def phase_selffilter(torch, dev, smi: str, seed: int):
     from mapping_private_tpu_torch.pipeline import Pipeline, Stage
     from mapping_private_tpu_torch.realtime import depth as rd, render as rr, segmentation as rs, urdf
     from mapping_private_tpu_torch.utils.metrics import Metrics
+    from perfbench.references.selffilter_frames import segments as exact_segments  # scipy's components
 
     t_phase = time.perf_counter()
     cpu = torch.device("cpu")
@@ -2376,15 +2379,18 @@ def phase_selffilter(torch, dev, smi: str, seed: int):
         # -- 6. segmentation --------------------------------------------------
         times["segment_normal_image"] = _first_and_warm(lambda: rs.segment_normal_image(nimg, mask), torch)
         seg = times["segment_normal_image"][2]
-        seg_again, sweeps = rs._segment(nimg, mask, 0.3, 30)  # the same call, with its sweep count
+        seg_again, rounds = rs._segment(nimg, mask, 0.3, 30)  # the same call, with its round count
         seg_c = rs.segment_normal_image(nimg.cpu(), mask.cpu())
         seg_eq = float((seg.cpu() == seg_c).float().mean())
         n_comp = int(torch.unique(seg[seg < h * w]).numel())
-        print(f"segment_normal_image: {n_comp} components of at least 30 pixels, connected components ran {sweeps} "
-              f"sweeps (cap 256{', reached: large planes come out split, as in the JAX package' if sweeps >= 256 else ''}); "
-              f"card vs CPU labels equal on {seg_eq:.5f} (bound 0.999)", flush=True)
-        if seg_eq < 0.999 or n_comp < 3 or not torch.equal(seg, seg_again):
-            fail("segment_normal_image differs from the CPU")
+        exact = exact_segments(rs.mean_shift_normals(nimg, mask, 0.3), mask, 0.3, 30).reshape(h, w)
+        big = sorted(torch.bincount(seg[seg < h * w].long()).tolist(), reverse=True)[:4]
+        print(f"segment_normal_image: {n_comp} components of at least 30 pixels (largest {big}), connected "
+              f"components converged in {rounds} rounds; equal to scipy's exact components "
+              f"{bool(np.array_equal(seg.cpu().numpy(), exact))}; card vs CPU labels equal on {seg_eq:.5f} "
+              f"(bound 0.999)", flush=True)
+        if seg_eq < 0.999 or n_comp < 3 or not torch.equal(seg, seg_again) or not np.array_equal(seg.cpu().numpy(), exact):
+            fail("segment_normal_image differs from the CPU or from the exact components")
 
         # -- 7. rays against the semantic map ---------------------------------
         semantic_map_xml(f"{td}/kitchen.xml", seed)

@@ -5,11 +5,15 @@ OpenGL FBO pass, realtime_perception src/urdf_renderer.cpp:67-135, and the
 attic ``boxlist_ray_intersection.cu``).  A barycentric rasteriser with no
 scanlines: the triangles go in blocks of ``chunk``, every pixel is tested
 against every triangle of a block in one broadcast of (chunk, H, W) edge
-functions, and the running minimum over the blocks is the z-buffer.  The
-JAX ``lax.scan`` over blocks is a Python loop; padding triangles of the
-last block are masked exactly as there.  Each block works only over the
-pixel window its triangles can cover (one host read of every block's
-window a call), which gives the full broadcast's image.
+functions, and the running minimum over the blocks is the z-buffer.
+Padding triangles of the last block are masked exactly as in the JAX
+package.  Each block works only over the pixel window its triangles can
+cover (one host read of every block's window a call), which gives the
+full broadcast's image.  A depth image is the least depth over all
+blocks, whatever their order, so ``render_depth_mesh`` evaluates blocks
+of like window size together, a few launches for all of them; the
+intensity image keeps the JAX ``lax.scan``'s block order as a Python
+loop, since its ties go to the earlier block.
 
 Ties go as in the JAX package: within a block the first least depth wins
 (``argmin``), across blocks the earlier block keeps a tie (strict ``<``).
@@ -24,6 +28,8 @@ import math
 from typing import Optional, Tuple
 
 import torch
+
+_BATCH_ELEMS = 1 << 25  # (blocks, triangles, rows, columns) elements of one batched pass of the depth raster
 
 
 def _chunk_windows(px, py, ok, h, w):
@@ -45,20 +51,15 @@ def _chunk_windows(px, py, ok, h, w):
 
 
 def _edge(ax, ay, bx, by, uu, vv):
-    """(C, h, w) edge functions of the C edges a → b over the pixel grid."""
-    return (bx - ax)[:, None, None] * (vv - ay[:, None, None]) - (by - ay)[:, None, None] * (uu - ax[:, None, None])
+    """(..., C, h, w) edge functions of the C edges a → b over the pixel grid."""
+    return ((bx - ax)[..., None, None] * (vv - ay[..., None, None])
+            - (by - ay)[..., None, None] * (uu - ax[..., None, None]))
 
 
-def _raster_mesh(vertices, triangles, image_shape, fx, fy, cx, cy, pose, chunk, z_near, z_far,
-                 intensities=None):
-    """Shared chunked raster core: (zbuf, ibuf), ibuf None without
-    ``intensities``.  Runs on ``vertices``' device.
-
-    A block's edge functions are evaluated only over its pixel window
-    (``_chunk_windows``): a pixel a pixel or more outside a triangle's
-    bounding box has a clearly negative edge function, so it is outside
-    the triangle in the JAX package's full-image broadcast too, and a
-    pixel inside the window sees the same arithmetic as there."""
+def _prepare(vertices, triangles, image_shape, fx, fy, cx, cy, pose, chunk, z_near):
+    """The raster's inputs: blocked triangles (B, C, 3), their live mask
+    (B, C), each vertex's projection (px, py) and clamped depth, and each
+    block's pixel window (``_chunk_windows``)."""
     h, w = image_shape
     cx = (w - 1) / 2.0 if cx is None else cx
     cy = (h - 1) / 2.0 if cy is None else cy
@@ -67,7 +68,6 @@ def _raster_mesh(vertices, triangles, image_shape, fx, fy, cx, cy, pose, chunk, 
     if pose is not None:
         pose = torch.as_tensor(pose, dtype=torch.float32, device=dev)
         v = v @ pose[:3, :3].T + pose[:3, 3]
-    inten = None if intensities is None else torch.as_tensor(intensities, dtype=torch.float32, device=dev)
     tri = torch.as_tensor(triangles, device=dev).long()
     t_total = tri.shape[0]
     pad = (-t_total) % chunk
@@ -82,32 +82,88 @@ def _raster_mesh(vertices, triangles, image_shape, fx, fy, cx, cy, pose, chunk, 
     py_v = v[:, 1] / zc_v * fy + cy
     z_all = v[:, 2][tri]  # (B, C, 3)
     live = torch.all(z_all > z_near, dim=-1) & tri_valid
-    windows = _chunk_windows(px_v[tri], py_v[tri], live, h, w)
+    return tri, live, px_v, py_v, zc_v, _chunk_windows(px_v[tri], py_v[tri], live, h, w)
+
+
+def _block_depth(px, py, zc, in_front, uu, vv, z_far):
+    """(..., C, h, w) depth of each of a block's C triangles over a pixel
+    grid (``uu``, ``vv`` broadcast against (..., C, h, w)), ``z_far`` where a
+    triangle does not cover the pixel; and the barycentrics.  px, py, zc:
+    (..., C, 3) projected vertices and their clamped depths."""
+    x0, x1, x2 = px.unbind(-1)
+    y0, y1, y2 = py.unbind(-1)
+    area = (x1 - x0) * (y2 - y0) - (x2 - x0) * (y1 - y0)
+    nz_area = torch.abs(area) > 1e-9
+    area_s = torch.where(nz_area, area, 1.0)[..., None, None]
+    w0 = _edge(x1, y1, x2, y2, uu, vv) / area_s
+    w1 = _edge(x2, y2, x0, y0, uu, vv) / area_s
+    w2 = _edge(x0, y0, x1, y1, uu, vv) / area_s
+    inside = (w0 >= 0) & (w1 >= 0) & (w2 >= 0) & (nz_area & in_front)[..., None, None]
+    # perspective-correct depth: 1/z interpolated with the barycentrics
+    inv_z = w0 / zc[..., 0, None, None] + w1 / zc[..., 1, None, None] + w2 / zc[..., 2, None, None]
+    return torch.where(inside, torch.reciprocal(torch.clamp_min(inv_z, 1e-9)), z_far), (w0, w1, w2)
+
+
+def _raster_depth(vertices, triangles, image_shape, fx, fy, cx, cy, pose, chunk, z_near, z_far):
+    """The z-buffer of ``_raster_mesh``, bit for bit, with the blocks
+    batched: each block's window is widened to a power of two a side (kept
+    inside the image: a pixel outside a block's window is outside its
+    triangles, so a wider one changes nothing), blocks of one padded size
+    are evaluated together, ``_BATCH_ELEMS`` elements at a time, and their
+    least depths are folded into the z-buffer by a scatter-min."""
+    h, w = image_shape
+    tri, live, px_v, py_v, zc_v, windows = _prepare(vertices, triangles, image_shape, fx, fy, cx, cy, pose,
+                                                    chunk, z_near)
+    dev = px_v.device
+    groups = {}
+    for b, win in enumerate(windows):
+        if win is None:
+            continue
+        r0, r1, c0, c1 = win
+        wh, ww = min(1 << (r1 - r0 - 1).bit_length(), h), min(1 << (c1 - c0 - 1).bit_length(), w)
+        groups.setdefault((wh, ww), []).append((b, min(r0, h - wh), min(c0, w - ww)))
+    zbuf = torch.full((h * w,), z_far, dtype=torch.float32, device=dev)
+    for (wh, ww), items in groups.items():
+        step = max(1, _BATCH_ELEMS // (chunk * wh * ww))
+        for s in range(0, len(items), step):
+            b, r0, c0 = torch.tensor(items[s : s + step], device=dev).unbind(1)
+            rows = r0[:, None] + torch.arange(wh, device=dev)  # (n, wh) image rows of each window
+            cols = c0[:, None] + torch.arange(ww, device=dev)
+            ids = tri[b]  # (n, C, 3)
+            depth, _ = _block_depth(px_v[ids], py_v[ids], zc_v[ids], live[b],
+                                    cols.float()[:, None, None, :], rows.float()[:, None, :, None], z_far)
+            pix = (rows[:, :, None] * w + cols[:, None, :]).reshape(-1)
+            zbuf.scatter_reduce_(0, pix, torch.min(depth, dim=1).values.reshape(-1), "amin")
+    return zbuf.reshape(h, w)
+
+
+def _raster_mesh(vertices, triangles, image_shape, fx, fy, cx, cy, pose, chunk, z_near, z_far,
+                 intensities=None):
+    """Shared chunked raster core, block by block in the JAX package's
+    order: (zbuf, ibuf), ibuf None without ``intensities``.  Runs on
+    ``vertices``' device.
+
+    A block's edge functions are evaluated only over its pixel window
+    (``_chunk_windows``): a pixel a pixel or more outside a triangle's
+    bounding box has a clearly negative edge function, so it is outside
+    the triangle in the JAX package's full-image broadcast too, and a
+    pixel inside the window sees the same arithmetic as there."""
+    h, w = image_shape
+    tri, live, px_v, py_v, zc_v, windows = _prepare(vertices, triangles, image_shape, fx, fy, cx, cy, pose,
+                                                    chunk, z_near)
+    dev = px_v.device
+    inten = None if intensities is None else torch.as_tensor(intensities, dtype=torch.float32, device=dev)
     vv_full, uu_full = torch.meshgrid(torch.arange(h, dtype=torch.float32, device=dev),
                                       torch.arange(w, dtype=torch.float32, device=dev), indexing="ij")
-
     zbuf = torch.full((h, w), z_far, dtype=torch.float32, device=dev)
     ibuf = None if inten is None else torch.zeros((h, w), dtype=torch.float32, device=dev)
     for b, win in enumerate(windows):
         if win is None:
             continue
         r0, r1, c0, c1 = win
-        ids, in_front = tri[b], live[b]
-        vv, uu = vv_full[r0:r1, c0:c1], uu_full[r0:r1, c0:c1]
-        zc = zc_v[ids]
-        px, py = px_v[ids], py_v[ids]
-        x0, x1, x2 = px.unbind(1)
-        y0, y1, y2 = py.unbind(1)
-        area = (x1 - x0) * (y2 - y0) - (x2 - x0) * (y1 - y0)
-        nz_area = torch.abs(area) > 1e-9
-        area_s = torch.where(nz_area, area, 1.0)[:, None, None]
-        w0 = _edge(x1, y1, x2, y2, uu, vv) / area_s
-        w1 = _edge(x2, y2, x0, y0, uu, vv) / area_s
-        w2 = _edge(x0, y0, x1, y1, uu, vv) / area_s
-        inside = (w0 >= 0) & (w1 >= 0) & (w2 >= 0) & (nz_area & in_front)[:, None, None]
-        # perspective-correct depth: 1/z interpolated with the barycentrics
-        inv_z = w0 / zc[:, 0, None, None] + w1 / zc[:, 1, None, None] + w2 / zc[:, 2, None, None]
-        depth = torch.where(inside, torch.reciprocal(torch.clamp_min(inv_z, 1e-9)), z_far)
+        ids = tri[b]
+        depth, (w0, w1, w2) = _block_depth(px_v[ids], py_v[ids], zc_v[ids], live[b], uu_full[r0:r1, c0:c1],
+                                           vv_full[r0:r1, c0:c1], z_far)
         zwin = zbuf[r0:r1, c0:c1]
         if ibuf is None:
             zbuf[r0:r1, c0:c1] = torch.minimum(zwin, torch.min(depth, dim=0).values)
@@ -143,7 +199,7 @@ def render_depth_mesh(
     vertices: (V, 3) model frame; triangles: (T, 3) vertex indices; pose:
     optional (4, 4) model → camera transform; chunk: triangles a block.
     Returns (H, W) depth in metres, 0 where nothing was hit."""
-    zbuf, _ = _raster_mesh(vertices, triangles, image_shape, fx, fy, cx, cy, pose, chunk, z_near, z_far)
+    zbuf = _raster_depth(vertices, triangles, image_shape, fx, fy, cx, cy, pose, chunk, z_near, z_far)
     return torch.where(zbuf < z_far, zbuf, 0.0)
 
 

@@ -18,10 +18,23 @@ mean shift wrap around the image (``roll`` with no border mask), so a
 border pixel sees the opposite border; only the connected components mask
 the wrap.  Multi-plane RANSAC's round draws the row ``u[count]`` of its
 uniforms, ``count`` being the planes accepted so far (the JAX
-``fold_in(key, count)``).  The connected components read convergence on
-the host once per ``_SWEEPS_PER_CHECK`` sweeps, never past ``max_iters``
-(sweeps after the fixed point change nothing); ``_components`` and
-``_segment`` also return the number of sweeps run.
+``fold_in(key, count)``).
+
+Two connected-components passes:
+
+- ``connected_components_image`` is the JAX package's: the least label
+  moves one pixel a sweep, and the loop stops at the fixed point or after
+  ``max_iters`` sweeps (convergence read on the host once per
+  ``_SWEEPS_PER_CHECK`` sweeps), so a component longer than that comes out
+  split.  ``_components`` also returns the sweeps run.
+- ``segment_normal_image`` labels its symmetric "normals agree" graph
+  exactly, on any image (``_exact_components``): min-label hooking with
+  pointer jumping (FastSV), whose paths halve each round, so a 640 x 480
+  frame settles in 12-18 rounds, one host read each (a 150,000-pixel
+  serpentine included), where one-pixel sweeps need thousands.  Its
+  labels are those the capped loop reaches wherever that converges.
+  ``_segment`` returns the rounds, which it also counts as
+  ``segment.component_rounds``.
 """
 from __future__ import annotations
 
@@ -30,6 +43,7 @@ from typing import Optional, Tuple
 import torch
 
 from mapping_private_tpu_torch.fit.ransac import sample_live_indices
+from mapping_private_tpu_torch.utils.metrics import metrics
 
 _SWEEPS_PER_CHECK = 8
 _SHIFTS = ((-1, 0), (1, 0), (0, -1), (0, 1))  # up, down, left, right
@@ -55,6 +69,43 @@ def fast_normals_image(points: torch.Tensor, valid: torch.Tensor) -> torch.Tenso
     return n * torch.where(n[..., 2:3] > 0, -1.0, 1.0)
 
 
+def _multi_plane_ransac(xyz, normals, mask, generator, num_hypotheses, max_planes, threshold, min_coverage, u):
+    """``multi_plane_ransac``'s planes, labels and count, each plane's seed
+    row (its hypothesis point, -1 in unused slots) and the rounds run."""
+    dev = xyz.device
+    if u is None:
+        u = torch.rand((max_planes, num_hypotheses), generator=generator, device=dev)
+    u = torch.as_tensor(u, dtype=torch.float32, device=dev)
+    total = torch.clamp_min(torch.sum(mask, dtype=torch.float32), 1.0)
+    live = mask.clone()
+    labels = torch.full((xyz.shape[0],), -1, dtype=torch.int32, device=dev)
+    planes = torch.zeros((max_planes, 4), dtype=torch.float32, device=dev)
+    seeds = torch.full((max_planes,), -1, dtype=torch.int64, device=dev)
+    count = rounds = 0
+    for _ in range(max_planes):  # rounds after the JAX loop is done change nothing: stop there
+        rounds += 1
+        idx = sample_live_indices(None, live, (num_hypotheses,), u=u[count])
+        p0, nh = xyz[idx], normals[idx]
+        d = -torch.sum(nh * p0, dim=-1)
+        dist = torch.abs(xyz @ nh.T + d[None, :])  # (N, H)
+        inl = (dist < threshold) & live[:, None]
+        scores = torch.sum(inl, dim=0, dtype=torch.float32)
+        scores = torch.where(_norm(nh)[:, 0] > 1e-6, scores, 0.0)  # zero normals score 0
+        best = torch.argmax(scores)  # the first maximum, as jnp.argmax
+        if not bool(scores[best] > 0):
+            break
+        best_inl = inl[:, best]
+        labels = torch.where(best_inl, count, labels)
+        planes[count] = torch.cat([nh[best], d[best][None]])
+        seeds[count] = idx[best]
+        live = live & ~best_inl
+        count += 1
+        explained = 1.0 - torch.sum(live, dtype=torch.float32) / total
+        if bool(explained >= min_coverage):
+            break
+    return planes, labels, torch.tensor(count, dtype=torch.int32, device=dev), seeds, rounds
+
+
 def multi_plane_ransac(
     xyz: torch.Tensor,
     normals: torch.Tensor,
@@ -74,35 +125,8 @@ def multi_plane_ransac(
 
     Returns planes (max_planes, 4) [n, d] (zeros in unused slots), labels
     (N,) int32 (−1 = unexplained) and the plane count, a 0-d int32 tensor."""
-    dev = xyz.device
-    if u is None:
-        u = torch.rand((max_planes, num_hypotheses), generator=generator, device=dev)
-    u = torch.as_tensor(u, dtype=torch.float32, device=dev)
-    total = torch.clamp_min(torch.sum(mask, dtype=torch.float32), 1.0)
-    live = mask.clone()
-    labels = torch.full((xyz.shape[0],), -1, dtype=torch.int32, device=dev)
-    planes = torch.zeros((max_planes, 4), dtype=torch.float32, device=dev)
-    count = 0
-    for _ in range(max_planes):  # rounds after the JAX loop is done change nothing: stop there
-        idx = sample_live_indices(None, live, (num_hypotheses,), u=u[count])
-        p0, nh = xyz[idx], normals[idx]
-        d = -torch.sum(nh * p0, dim=-1)
-        dist = torch.abs(xyz @ nh.T + d[None, :])  # (N, H)
-        inl = (dist < threshold) & live[:, None]
-        scores = torch.sum(inl, dim=0, dtype=torch.float32)
-        scores = torch.where(_norm(nh)[:, 0] > 1e-6, scores, 0.0)  # zero normals score 0
-        best = torch.argmax(scores)  # the first maximum, as jnp.argmax
-        if not bool(scores[best] > 0):
-            break
-        best_inl = inl[:, best]
-        labels = torch.where(best_inl, count, labels)
-        planes[count] = torch.cat([nh[best], d[best][None]])
-        live = live & ~best_inl
-        count += 1
-        explained = 1.0 - torch.sum(live, dtype=torch.float32) / total
-        if bool(explained >= min_coverage):
-            break
-    return planes, labels, torch.tensor(count, dtype=torch.int32, device=dev)
+    return _multi_plane_ransac(xyz, normals, mask, generator, num_hypotheses, max_planes, threshold,
+                               min_coverage, u)[:3]
 
 
 def _cc_sweep(labels: torch.Tensor, adjacency_ok: torch.Tensor, valid: torch.Tensor, dead: int) -> torch.Tensor:
@@ -164,44 +188,86 @@ def mean_shift_normals(
 ) -> torch.Tensor:
     """Mean-shift filtering of a normal image (meanShiftSegmentation's
     front half): each normal moves to the mean of the window's
-    neighbours whose normals lie within ``range_bandwidth``."""
+    neighbours whose normals lie within ``range_bandwidth``.
+
+    Each pass gathers the window's (2·window + 1)² wrapped neighbours at
+    once (the JAX package's rolls) and weighs them together; the sums run
+    over the neighbours in the JAX package's order, one add each."""
     n = normal_img
+    h, w = valid.shape
     bw2 = range_bandwidth * range_bandwidth
+    offsets = torch.arange(-window, window + 1, device=n.device)
+    dy, dx = offsets.repeat_interleave(len(offsets)), offsets.repeat(len(offsets))  # the rolls' order
+    rows = (torch.arange(h, device=n.device)[None, :] + dy[:, None]) % h  # roll by -dy reads row i + dy
+    cols = (torch.arange(w, device=n.device)[None, :] + dx[:, None]) % w
+    src = rows[:, :, None] * w + cols[:, None, :]  # (S, H, W) each shift's source pixel
+    both = valid.reshape(-1)[src] & valid
     for _ in range(iterations):
+        nb = n.reshape(-1, 3)[src]  # (S, H, W, 3)
+        wgt = ((torch.sum((nb - n) ** 2, dim=-1) < bw2) & both).to(n.dtype)
+        part = nb * wgt[..., None]
         acc = torch.zeros_like(n)
         wsum = torch.zeros(n.shape[:2], dtype=n.dtype, device=n.device)
-        for dy in range(-window, window + 1):
-            for dx in range(-window, window + 1):
-                nb = torch.roll(n, (-dy, -dx), dims=(0, 1))
-                vb = torch.roll(valid, (-dy, -dx), dims=(0, 1))
-                d2 = torch.sum((nb - n) ** 2, dim=-1)
-                wgt = ((d2 < bw2) & vb & valid).to(n.dtype)
-                acc = acc + nb * wgt[..., None]
-                wsum = wsum + wgt
+        for k in range(src.shape[0]):
+            acc = acc + part[k]
+            wsum = wsum + wgt[k]
         out = acc / torch.clamp_min(wsum, 1.0)[..., None]
         ln = _norm(out)
         n = torch.where(ln > 1e-9, out / torch.clamp_min(ln, 1e-30), n)
     return n
 
 
+def _exact_components(right: torch.Tensor, down: torch.Tensor, valid: torch.Tensor) -> Tuple[torch.Tensor, int]:
+    """Labels of the connected components of an image's undirected
+    4-neighbour graph, and the rounds run.
+
+    right: (H, W - 1) bool, pixel (i, j) joined to (i, j + 1); down:
+    (H - 1, W) bool, (i, j) joined to (i + 1, j); both false at an invalid
+    pixel.  Labels: the flat index of the component's least pixel, H·W for
+    invalid pixels.  Each round hooks every pixel's root onto the least
+    grandparent across its edges (stochastic and aggressive hooking) and
+    halves every path (shortcutting); the labels only fall and stay within
+    their component, so a round that changes nothing leaves every pixel
+    pointing at the least pixel of its component.  One host read a round."""
+    h, w = valid.shape
+    n = h * w
+    flat = torch.arange(n, device=valid.device).reshape(h, w)
+    a = torch.cat([flat[:, :-1][right], flat[:-1, :][down]])
+    b = torch.cat([flat[:, 1:][right], flat[1:, :][down]])
+    src, dst = torch.cat([a, b]), torch.cat([b, a])  # each edge both ways
+    f = flat.reshape(-1)
+    rounds = 0
+    while True:
+        rounds += 1
+        gf = f[f]
+        hooked = gf[dst]
+        new = f.scatter_reduce(0, f[src], hooked, "amin")  # stochastic hooking: a root takes the least
+        new.scatter_reduce_(0, src, hooked, "amin")  # aggressive hooking: a pixel takes the least
+        new = torch.minimum(new, gf)  # shortcutting
+        if torch.equal(new, f):
+            break
+        f = new
+    return torch.where(valid.reshape(-1), f, n).reshape(h, w).to(torch.int32), rounds
+
+
 def _segment(
     normal_img: torch.Tensor, valid: torch.Tensor, range_bandwidth: float, min_size: int
 ) -> Tuple[torch.Tensor, int]:
-    """``segment_normal_image``'s labels and the sweeps its connected
-    components ran."""
+    """``segment_normal_image``'s labels and the rounds its connected
+    components ran (counted as ``segment.component_rounds``)."""
     n = mean_shift_normals(normal_img, valid, range_bandwidth)
     bw2 = range_bandwidth * range_bandwidth
-    adj = []
-    for dy, dx in _SHIFTS:
-        nb = torch.roll(n, (-dy, -dx), dims=(0, 1))
-        vb = torch.roll(valid, (-dy, -dx), dims=(0, 1))
-        adj.append((torch.sum((nb - n) ** 2, dim=-1) < bw2) & vb)
-    labels, sweeps = _components(torch.stack(adj, dim=-1), valid, 256)
+    # the "normals agree" edges, each once: bit for bit the (right, down)
+    # entries of the capped loop's adjacency, which is symmetric
+    right = (torch.sum((n[:, 1:] - n[:, :-1]) ** 2, dim=-1) < bw2) & valid[:, 1:] & valid[:, :-1]
+    down = (torch.sum((n[1:] - n[:-1]) ** 2, dim=-1) < bw2) & valid[1:] & valid[:-1]
+    labels, rounds = _exact_components(right, down, valid)
+    metrics.count("segment.component_rounds", rounds)
     h, w = valid.shape
     sizes = torch.zeros((h * w + 1,), dtype=torch.int32, device=valid.device)
     sizes.index_add_(0, labels.reshape(-1).long(), valid.reshape(-1).to(torch.int32))
     big = sizes[torch.clamp(labels, 0, h * w).long()] >= min_size
-    return torch.where(valid & big, labels, h * w), sweeps
+    return torch.where(valid & big, labels, h * w), rounds
 
 
 def segment_normal_image(
@@ -211,6 +277,7 @@ def segment_normal_image(
     min_size: int = 30,
 ) -> torch.Tensor:
     """Mean-shift segmentation (meanShiftSegmentation, :259): filter the
-    normals, then connected components over "normals agree" adjacency;
-    components under ``min_size`` pixels dissolve to label H·W."""
+    normals, then the exact connected components of the "normals agree"
+    graph (4-neighbour, no wrap), on an image of any size; components under
+    ``min_size`` pixels dissolve to label H·W."""
     return _segment(normal_img, valid, range_bandwidth, min_size)[0]

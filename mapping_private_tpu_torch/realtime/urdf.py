@@ -223,6 +223,32 @@ def _geometry_mesh(g: Geometry) -> Tuple[np.ndarray, np.ndarray]:
     return v.astype(np.float32), t
 
 
+def _link_meshes(robot: RobotModel, links) -> List[Tuple[str, np.ndarray, np.ndarray]]:
+    """(link name, vertices in the link's frame, triangles) of every
+    geometry of the named links, in the render's order (links as the
+    model lists them, then their geometries)."""
+    return [(name, *_geometry_mesh(g)) for name, link in robot.links.items() if name in links
+            for g in link.geometries]
+
+
+def _mesh_triangles(meshes) -> np.ndarray:
+    """The meshes' triangles as one (T, 3) array over their stacked vertices."""
+    offsets = np.cumsum([0] + [len(v) for _, v, _ in meshes[:-1]])
+    return np.concatenate([t + off for (_, _, t), off in zip(meshes, offsets)])
+
+
+def _posed_vertices(meshes, poses: Dict[str, np.ndarray], camera_from_root: np.ndarray) -> np.ndarray:
+    """The meshes' vertices moved into the camera frame on the host, each
+    geometry by its link's float32 pose (the URDFRenderer's
+    ``process_link``): (V, 3) float32, stacked as ``_mesh_triangles``."""
+    cam = np.asarray(camera_from_root, np.float64)
+    out = []
+    for name, v, _ in meshes:
+        T = cam @ poses[name]
+        out.append(v @ T[:3, :3].T.astype(np.float32) + T[:3, 3].astype(np.float32))
+    return np.concatenate(out)
+
+
 def render_robot_depth(
     robot: RobotModel,
     camera_from_root: np.ndarray,
@@ -236,24 +262,13 @@ def render_robot_depth(
     """One (H, W) depth image of the whole robot (the URDFRenderer FBO
     pass), rendered on ``device``: forward-kinematics each link, move its
     meshes into the camera frame on the host, rasterise all triangles in
-    one call.  Returns numpy, 0 where the robot is not seen."""
+    one call.  Returns numpy, 0 where the robot is not seen.  A stream of
+    frames keeps its meshes loaded: ``realtime.self_filter.KinectSelfFilter``."""
     device = resolve_device(device)
     poses = robot.forward_kinematics(joint_values)
-    all_v, all_t = [], []
-    off = 0
-    cam = np.asarray(camera_from_root, np.float64)
-    for name, link in robot.links.items():
-        if name not in poses:
-            continue
-        T = cam @ poses[name]
-        for g in link.geometries:
-            v, t = _geometry_mesh(g)
-            v = v @ T[:3, :3].T.astype(np.float32) + T[:3, 3].astype(np.float32)
-            all_v.append(v)
-            all_t.append(t + off)
-            off += len(v)
-    if not all_v:
+    meshes = _link_meshes(robot, poses)
+    if not meshes:
         return np.zeros(image_shape, np.float32)
-    verts = torch.from_numpy(np.concatenate(all_v)).to(device)
-    tris = torch.from_numpy(np.concatenate(all_t)).to(device)
+    verts = torch.from_numpy(_posed_vertices(meshes, poses, camera_from_root)).to(device)
+    tris = torch.from_numpy(_mesh_triangles(meshes)).to(device)
     return render_depth_mesh(verts, tris, image_shape, fx=fx, fy=fy).cpu().numpy()

@@ -11,7 +11,8 @@ Tolerances, each stated where it is used:
   the cross product's multiply-adds);
 - rasterised depth: hit masks equal and depth within 1e-5 relative
   (XLA fuses the edge functions' multiply-adds, the port does not, so
-  the last bits differ); intensities within 1e-5 of the 255 range;
+  the last bits differ); intensities within 1e-5 of the 255 range; the
+  port's batched depth raster equal to its block loop;
 - multi-plane RANSAC with the JAX draws (``jax_ref.multi_plane_uniforms``):
   the same plane count, planes within 1e-5, labels equal on ≥ 99.9% of
   rows (a row within an ulp of the threshold can flip where the
@@ -116,6 +117,17 @@ def test_render_depth_mesh_matches(chunk):
     want = np.asarray(jr.render_depth_mesh(verts, tris, (H, W), fx=F, fy=F, chunk=chunk))
     assert (want > 0).mean() > 0.3
     assert_depth_close(got, want)
+
+
+@pytest.mark.parametrize("seed,chunk,n_tri,z", [(2, 64, 200, 3.0), (5, 7, 60, 1.0), (6, 1, 40, 6.0), (7, 16, 300, 0.6)])
+def test_batched_depth_raster_equals_the_block_loop(seed, chunk, n_tri, z):
+    """render_depth_mesh folds blocks of like window size together: the
+    same z-buffer as the block loop, bit for bit (the depth image is the
+    least over the blocks, in any order)."""
+    verts, tris = random_mesh(seed, n_tri=n_tri, z=z)
+    args = (t(verts), t(tris), (H, W), F, F, None, None, None, chunk, 0.1, 100.0)
+    loop = tr._raster_mesh(*args)[0]
+    assert torch.equal(tr._raster_depth(*args), loop) and (loop < 100.0).any()
 
 
 def test_render_depth_mesh_with_pose_matches():
@@ -285,6 +297,32 @@ def test_connected_components_random_adjacency_matches():
     want = np.asarray(js.connected_components_image(jnp.asarray(adj), jnp.asarray(valid)))
     np.testing.assert_array_equal(got, want)
     assert (got[~valid] == H * W).all()
+
+
+def rolled_mean_shift(n, valid, bw, window=2, iterations=5):
+    """The mean shift as the JAX package writes it, a roll a neighbour."""
+    for _ in range(iterations):
+        acc, wsum = torch.zeros_like(n), torch.zeros(n.shape[:2], dtype=n.dtype)
+        for dy in range(-window, window + 1):
+            for dx in range(-window, window + 1):
+                nb, vb = torch.roll(n, (-dy, -dx), dims=(0, 1)), torch.roll(valid, (-dy, -dx), dims=(0, 1))
+                wgt = ((torch.sum((nb - n) ** 2, dim=-1) < bw * bw) & vb & valid).to(n.dtype)
+                acc, wsum = acc + nb * wgt[..., None], wsum + wgt
+        out = acc / torch.clamp_min(wsum, 1.0)[..., None]
+        ln = torch.sqrt(torch.sum(out * out, dim=-1, keepdim=True))
+        n = torch.where(ln > 1e-9, out / torch.clamp_min(ln, 1e-30), n)
+    return n
+
+
+@pytest.mark.parametrize("seed,bw,window", [(3, 0.2, 2), (4, 0.3, 2), (5, 1.0, 1), (6, 0.3, 3)])
+def test_mean_shift_gathers_equal_the_rolls(seed, bw, window):
+    """The port gathers a pass's neighbours at once: bit for bit the
+    roll-a-neighbour loop, the sums in its order."""
+    pts, valid = organized(seed)
+    n = t(np.asarray(js.fast_normals_image(jnp.asarray(pts), jnp.asarray(valid))))
+    ok = t(valid) & (torch.linalg.vector_norm(n, dim=-1) > 0.5)
+    got = ts.mean_shift_normals(n, ok, bw, window=window)
+    assert torch.equal(got, rolled_mean_shift(n, ok, bw, window)) and not torch.equal(got, n)
 
 
 def test_mean_shift_and_segment_normal_image_match():
