@@ -9,7 +9,7 @@ CUDA toolkit (nvcc):
 Phases (any failure exits non-zero before the result line):
 
 1. Card and build: the card's name and power limit from nvidia-smi, then
-   all four kernels (nn_argmin, nn_matmul, nn_gather, knn_kbest) built from csrc/
+   all five kernels (nn_argmin, nn_matmul, nn_gather, knn_kbest, icp_gn) built from csrc/
    with nvcc, one process per source, started together (time and ptxas
    report for each: registers, shared memory, spills).
 2. Each kernel against its plain PyTorch version on the card: 20,000 x
@@ -48,10 +48,16 @@ Phases (any failure exits non-zero before the result line):
    (bench.py's surface and step sizes) written as PCD files and registered
    with ``mapping_private_tpu_torch.apps.icp_register.main([... "--device",
    "cuda"])``.  Every pairwise transform must be within 0.05 (Frobenius) of
-   the truth, the trajectory finite, and the kernel launched at least
-   pairs x sweeps times by that run.  Then per-pair wall times (normals +
-   ICP), and the same small pair registered on the CPU (plain version) and
-   on the card (kernel), which must agree within 1e-4.
+   the truth, the trajectory finite, the kernel launched at least
+   pairs x sweeps times by that run and ICP's GN kernel taken in every
+   sweep.  Then per-pair wall times (normals + ICP), and the same small
+   pair registered on the CPU (plain version) and on the card (kernel),
+   which must agree within 1e-4.  Then ICP's GN kernel (csrc/icp_gn.cu)
+   against its plain version, both on the card, at scans 1 and 2 of the
+   scan20k ring: transforms within 2e-6 (Frobenius) after 20 sweeps, the
+   count equal, the per-sweep RMSE within 1e-5 relative, one
+   ``icp_gn.launches`` a sweep; then one sweep's apply, partial sums and
+   solve timed alone (us) beside nn_argmin and the plain GN sweep.
 4. The NN layer's other entry points, as a caller uses them: on the
    20k pair, ``nn_matmul`` and ``nn_gather`` in each distance mode give
    the point-to-plane residuals of one ICP sweep; ``nn_gather(dist="vpu")``
@@ -262,6 +268,9 @@ N_SCANS = 4  # registration chain (phase 3)
 ICP_ITERS = 20  # icp_register's default sweep count
 T_TOL = 0.05  # |T - T_true|_F, the bound of bench.py's convergence check
 SMALL_TOL = 1e-4  # CPU plain vs card kernel on a small pair
+GN_T_TOL = 2e-6  # |T_kernel - T_plain|_F after 20 sweeps, ICP's GN kernel against its plain version on the card
+GN_RMSE_RTOL = 1e-5  # per-sweep RMSE of the same two runs, relative
+GN_SEED = 3190000001  # the scan20k ring whose scans 1 and 2 make the GN check's pair
 N_BIG = 200_000  # bench.py's big-cloud shape (phase 5)
 BIG_RADIUS = 0.1
 N_MAP_SCANS = 12  # mapping loop (phase 6)
@@ -326,6 +335,8 @@ SLOTS_PER_PAIR = {"nn_argmin": 9, "nn_matmul": 8, "nn_gather:vpu": 9,
 # earlier records.
 SLOTS_PER_PAIR_BEFORE = {name: n + 1 for name, n in SLOTS_PER_PAIR.items()}
 KERNEL_FILES = {
+    "icp_gn": ("mapping_private_tpu_torch/csrc/icp_gn.cu",
+               "none: the sweep's GN work, which XLA fuses (mapping_private_tpu/registration/icp.py::_gn_from_corr)"),
     "nn_argmin": ("mapping_private_tpu_torch/csrc/nn_argmin.cu", "mapping_private_tpu/ops/pallas_nn.py:245"),
     "nn_matmul": ("mapping_private_tpu_torch/csrc/nn_matmul.cu", "mapping_private_tpu/ops/pallas_nn.py:38"),
     "nn_gather": ("mapping_private_tpu_torch/csrc/nn_gather.cu", "mapping_private_tpu/ops/pallas_nn.py:110"),
@@ -2201,6 +2212,69 @@ def selffilter_robot(td: str, cam: np.ndarray):
     return urdf.parse_urdf(SF_URDF, mesh_root=td), cam @ root_pose(), finger
 
 
+def check_icp_gn(torch, dev, smi: str) -> dict:
+    """ICP's GN kernel (csrc/icp_gn.cu) against its plain version, both on
+    the card, at two consecutive scans of the scan20k ring with its cell's
+    settings: the transform within GN_T_TOL, the count equal, the per-sweep
+    RMSE within GN_RMSE_RTOL, one ``icp_gn.launches`` a sweep.  Then one
+    sweep's apply, partial sums and solve timed alone, beside nn_argmin at
+    the same shape.  Returns the kernel's entry of the kernels JSON line."""
+    from unittest import mock
+
+    from mapping_private_tpu_torch.core.cloud import PAD_COORD, PointCloud
+    from mapping_private_tpu_torch.ops.nn_argmin import nn_argmin_prepared, prepare_nn_ref_argmin
+    from mapping_private_tpu_torch.ops.normals import estimate_normals
+    from mapping_private_tpu_torch.registration import icp
+    from mapping_private_tpu_torch.utils.metrics import metrics
+    from perfbench.scenes.surface_scans import make_ring
+
+    cfg = json.loads((REPO_ROOT / "perfbench" / "configs" / "scan20k.json").read_text())
+    src, tgt = (PointCloud.from_numpy(f, device=dev) for f in make_ring(cfg, GN_SEED)["frames"][1:3])
+    nrm = estimate_normals(tgt, k=cfg["normals_k"]).channel("normal")
+    args = (src.padded_xyz(), src.mask, tgt.padded_xyz(), tgt.mask, nrm)
+    kw = {k: cfg["icp"][k] for k in ("iters", "max_corr_dist", "huber_delta", "damping")}
+    before = metrics.counters["icp_gn.launches"]
+    got = icp.icp_point_to_plane(*args, **kw)
+    torch.cuda.synchronize()
+    n_sweeps = metrics.counters["icp_gn.launches"] - before
+    with mock.patch.object(icp, "_gn_on_card", lambda t: False):
+        want = icp.icp_point_to_plane(*args, **kw)
+    gap = float(torch.linalg.matrix_norm(got.transform.double() - want.transform.double()))
+    rel = float(((got.per_iter_rmse.double() - want.per_iter_rmse.double()).abs()
+                 / want.per_iter_rmse.double().abs()).max())
+    cnt = (int(got.num_corr), int(want.num_corr))
+    msg = (f"icp_gn vs plain on the card, scan20k pair ({kw['iters']} sweeps): |dT|_F {gap:.3g} (bound "
+           f"{GN_T_TOL}), num_corr {cnt[0]} / {cnt[1]}, per-sweep RMSE max rel {rel:.3g} (bound {GN_RMSE_RTOL}), "
+           f"icp_gn.launches {n_sweeps}")
+    print(msg, flush=True)
+    if gap > GN_T_TOL or cnt[0] != cnt[1] or rel > GN_RMSE_RTOL or n_sweeps != kw["iters"]:
+        fail(msg)
+
+    # one sweep's launches alone, on the auto backend's buffers
+    tgt_xyz = torch.where(args[3][:, None], args[2], PAD_COORD)
+    prepared = prepare_nn_ref_argmin(tgt_xyz)
+    gn = icp._CardGN(args[0], args[1], tgt_xyz, torch.where(args[3][:, None], nrm, 0.0), got.transform,
+                     kw["iters"], kw["max_corr_dist"], kw["huber_delta"], kw["damping"], True)
+    q = gn.apply()
+    idx, sq = nn_argmin_prepared(q, prepared)
+    stages = {"apply": lambda: gn._launch(icp._GN_APPLY),
+              "partials": lambda: gn._launch(icp._GN_PARTIALS, idx, sq),
+              "solve": lambda: gn._launch(icp._GN_SOLVE)}
+    us = {name: 1e3 * event_ms(torch, fn, 500) for name, fn in stages.items()}
+    sweep_ms = event_ms(torch, lambda: [fn() for fn in stages.values()], 500)
+    nn_ms = event_ms(torch, lambda: nn_argmin_prepared(q, prepared), 50)
+    plain_ms = event_ms(torch, lambda: icp._gn_from_corr(
+        icp.se3_apply(gn.T, args[0]), idx, sq, args[1], tgt_xyz, gn.nrm, gn.T,
+        kw["max_corr_dist"], kw["huber_delta"], kw["damping"]), 20)
+    n = args[0].shape[0]
+    bytes_moved = n * (12 + 1 + 12 + 12) + n * (12 + 4 + 4 + 1 + 24)  # apply, then partials
+    bound = 1e3 * bytes_moved / HBM_BYTES_PER_S
+    print(f"icp_gn one sweep at {n} points: apply {us['apply']:.2f} us, partials {us['partials']:.2f} us, solve "
+          f"{us['solve']:.2f} us, the three back to back {1e3 * sweep_ms:.2f} us (bytes bound {1e3 * bound:.3f} us); "
+          f"nn_argmin {nn_ms:.4f} ms; the plain version's GN sweep {plain_ms:.4f} ms [{smi}]", flush=True)
+    return dict(max_abs_err=gap, ms=sweep_ms, plain_ms=plain_ms, bound_ms=bound, bound_by="bytes", stretches=None)
+
+
 def measured_frame(robot_d: np.ndarray, scene: np.ndarray):
     """The Kinect frame: the nearer of robot and scene, quantised to 1/8 px
     of disparity; returns (depth float32, 0 where nothing is seen; the
@@ -2555,7 +2629,8 @@ def main(argv=None) -> int:
 
     dev = torch.device("cuda")
     to_dev = lambda a: torch.from_numpy(np.ascontiguousarray(a)).to(dev)  # noqa: E731
-    nn_kernels = ("nn_argmin", "nn_matmul", "nn_gather", "knn_kbest")  # each counts its launches as "<name>.launches"
+    # each counts its launches as "<name>.launches" (icp_gn: one a sweep, three launches)
+    nn_kernels = ("nn_argmin", "nn_matmul", "nn_gather", "knn_kbest", "icp_gn")
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
 
@@ -2825,6 +2900,7 @@ def main(argv=None) -> int:
         torch.cuda.synchronize()
         cli_s = time.perf_counter() - t0
         n_launch = launches["nn_argmin"]["icp_register"] = metrics.counters["nn_argmin.launches"]
+        n_gn_register = metrics.counters["icp_gn.launches"]
         clouds = [load_pcd(p, device=dev) for p in paths]
     out = json.loads(buf.getvalue())
     pairs = N_SCANS - 1
@@ -2842,6 +2918,8 @@ def main(argv=None) -> int:
         fail(f"ICP did not converge: max |T - T_true|_F = {errs.max()}")
     if n_launch < pairs * ICP_ITERS:
         fail(f"icp_register launched the kernel {n_launch} times, expected >= {pairs * ICP_ITERS}")
+    if n_gn_register != pairs * ICP_ITERS:
+        fail(f"icp_register took ICP's GN kernel in {n_gn_register} sweeps, expected {pairs * ICP_ITERS}")
 
     # per-pair wall time, warm: host clock around work that ends in a sync
     for k in range(pairs):
@@ -2871,6 +2949,11 @@ def main(argv=None) -> int:
     print(f"small pair (2000 points): max |T_cpu - T_cuda| = {d_small:.3g} (bound {SMALL_TOL})")
     if d_small >= SMALL_TOL:
         fail(f"CPU and card disagree on a small pair: {d_small}")
+
+    # ICP's GN kernel against its plain version on the card
+    before = metrics.counters["icp_gn.launches"]
+    results["icp_gn"] = check_icp_gn(torch, dev, smi)
+    launches["icp_gn"] = {"icp_register": n_gn_register, "GN check": metrics.counters["icp_gn.launches"] - before}
 
     # -- phase 4: the NN layer's other entry points ------------------------------
     # one ICP sweep's correspondences on the 20k pair, as a caller asks for

@@ -41,6 +41,8 @@ KERNELS = {
     "nn_gather": [_VP, _CI, _VP, _CI, _CI, _CI, _VP, _VP, _CI, _VP, _CI, _VP, _VP, _VP, _VP, _VP],
     # rt, n, k, out, stream
     "knn_kbest": [_VP, _CI, _CI, _VP, _VP],
+    # stage, n, blocks, T, src, mask, p, queries, idx, sq, tgt, nrm, params, work, rmse, cnt, stream
+    "icp_gn": [_CI, _CI, _CI, *[_VP] * 13, _VP],
 }
 
 

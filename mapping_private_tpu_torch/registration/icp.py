@@ -5,7 +5,10 @@ Counterpart of ``mapping_private_tpu/registration/icp.py``
 residuals are Huber-weighted, the 6×6 normal equations are one reduction,
 and the pose update is an SE(3) exponential.  The sweep loop is a Python
 loop that never reads a value back to the host, so on the card the
-sweeps queue up without a sync.
+sweeps queue up without a sync.  On CUDA tensors each sweep's work beside
+the correspondence search is the hand-written kernel ``csrc/icp_gn.cu``
+(three launches: apply, partial sums, solve); CPU tensors run its plain
+version, ``se3_apply`` and ``_gn_from_corr``.
 """
 from __future__ import annotations
 
@@ -33,6 +36,13 @@ from mapping_private_tpu_torch.ops.tiled_nn import (
     tiled_nn_for_icp,
 )
 from mapping_private_tpu_torch.utils.metrics import metrics
+
+
+# csrc/icp_gn.cu's stages and launch geometry
+_GN_APPLY, _GN_PARTIALS, _GN_SOLVE = 0, 1, 2
+_GN_BLOCK = 128  # kBlock: threads of a partial-sums block
+_GN_MAX_BLOCKS = 1024  # kMaxBlocks
+_GN_ROW = 32  # kRow: float64 slots of a block's row of partial sums
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,6 +85,70 @@ def _gn_from_corr(
     cnt = torch.sum(ok, dtype=torch.int32)
     rmse = torch.sqrt(torch.sum(w * r * r) / torch.clamp_min(torch.sum(w), 1e-12))
     return T_new, rmse, cnt
+
+
+def _gn_on_card(src_xyz: torch.Tensor) -> bool:
+    """Whether the sweeps' GN work runs as csrc/icp_gn.cu: on CUDA tensors."""
+    return src_xyz.device.type == "cuda"
+
+
+class _CardGN:
+    """The GN work of every sweep as csrc/icp_gn.cu's launches, on the
+    buffers of one ``icp_point_to_plane`` call: the pose (a copy of the
+    initial one, rewritten in place by each solve), the moved points, the
+    NN queries with dead rows at −PAD_COORD where ``queries`` is set, the
+    blocks' partial sums and the (iters,) RMSE and count of each sweep."""
+
+    def __init__(self, src_xyz, src_mask, tgt_xyz, tgt_normals, T, iters: int,
+                 max_corr_dist: float, huber_delta: float, damping: float, queries: bool):
+        for name, t in (("src_xyz", src_xyz), ("tgt_xyz", tgt_xyz), ("tgt_normals", tgt_normals), ("T", T)):
+            if t.dtype != torch.float32:
+                raise TypeError(f"{name}: want float32 on the card, got {t.dtype}")
+        dev = src_xyz.device
+        self.n = src_xyz.shape[0]
+        self.src, self.mask = src_xyz.contiguous(), src_mask.to(torch.bool).contiguous()
+        self.tgt, self.nrm = tgt_xyz.contiguous(), tgt_normals.contiguous()
+        self.T = T.to(dev).clone(memory_format=torch.contiguous_format)
+        # the plain version's scalars, each rounded to f32 as a tensor op rounds them
+        self.params = torch.tensor([max_corr_dist * max_corr_dist, huber_delta, damping],
+                                   dtype=torch.float32, device=dev)
+        self.p = torch.empty_like(self.src)
+        self.q = torch.empty_like(self.src) if queries else None
+        self.blocks = max(1, min(-(-self.n // _GN_BLOCK), _GN_MAX_BLOCKS))
+        self.work = torch.empty((self.blocks, _GN_ROW), dtype=torch.float64, device=dev)
+        self.rmse = torch.empty((iters,), dtype=torch.float32, device=dev)
+        self.cnt = torch.empty((iters,), dtype=torch.int32, device=dev)
+        self.stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def _launch(self, stage: int, idx=None, sq=None, sweep: int = 0) -> None:
+        from mapping_private_tpu_torch._build import launch
+
+        ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+        launch("icp_gn", stage, self.n, self.blocks, ptr(self.T), ptr(self.src), ptr(self.mask),
+               ptr(self.p), ptr(self.q), ptr(idx), ptr(sq), ptr(self.tgt), ptr(self.nrm),
+               ptr(self.params), ptr(self.work), ptr(self.rmse) + 4 * sweep, ptr(self.cnt) + 4 * sweep,
+               self.stream)
+
+    def apply(self) -> torch.Tensor:
+        """p = T·src; returns the NN queries: p itself unless ``queries``."""
+        self._launch(_GN_APPLY)
+        return self.p if self.q is None else self.q
+
+    def step(self, idx: torch.Tensor, sq: torch.Tensor, sweep: int) -> None:
+        """T ← exp(ξ)·T from the correspondences of ``apply``'s points;
+        this sweep's RMSE and count to slot ``sweep``."""
+        idx = idx.to(torch.int32).contiguous()
+        sq = sq.to(torch.float32).contiguous()
+        if idx.shape != (self.n,) or sq.shape != (self.n,) or idx.device != self.p.device:
+            raise ValueError(f"correspondences {tuple(idx.shape)}, {tuple(sq.shape)} on {idx.device}: "
+                             f"want ({self.n},) on {self.p.device}")
+        self._launch(_GN_PARTIALS, idx, sq)
+        self._launch(_GN_SOLVE, sweep=sweep)
+        metrics.count("icp_gn.launches")
+
+    def result(self) -> "ICPResult":
+        return ICPResult(transform=self.T, rmse=self.rmse[-1], num_corr=self.cnt[-1],
+                         per_iter_rmse=self.rmse)
 
 
 def icp_point_to_plane(
@@ -123,14 +197,15 @@ def icp_point_to_plane(
     tile_size − δ.  Without it the queries are re-bucketed every sweep.
     """
     with metrics.span("icp"):
+        masked_queries = nn_backend == "auto"  # nn_fn takes queries with dead rows at -PAD_COORD
         if nn_backend == "auto":
             tgt_padded = torch.where(tgt_mask[:, None], tgt_xyz, PAD_COORD)
             tgt_normals = torch.where(tgt_mask[:, None], tgt_normals, 0.0)
             tgt_xyz = tgt_padded
             prepared = prepare_nn_ref_argmin(tgt_padded)  # once, outside the loop
 
-            def nn_fn(p):
-                return nn_argmin_prepared(torch.where(src_mask[:, None], p, -PAD_COORD), prepared)
+            def nn_fn(q):
+                return nn_argmin_prepared(q, prepared)
 
         elif nn_backend == "xla":
 
@@ -164,11 +239,22 @@ def icp_point_to_plane(
             raise ValueError(f"unknown nn_backend {nn_backend!r}")
 
         T = torch.eye(4, dtype=src_xyz.dtype, device=src_xyz.device) if init_T is None else init_T
+        if _gn_on_card(src_xyz):
+            gn = _CardGN(src_xyz, src_mask, tgt_xyz, tgt_normals, T, iters,
+                         max_corr_dist, huber_delta, damping, masked_queries)
+            with torch.cuda.device(src_xyz.device):
+                for s in range(iters):
+                    q = gn.apply()
+                    with metrics.span("icp.nn"):
+                        idx, sq = nn_fn(q)
+                    with metrics.span("icp.gn"):
+                        gn.step(idx, sq, s)
+            return gn.result()
         rmses, cnts = [], []
         for _ in range(iters):
             p = se3_apply(T, src_xyz)
             with metrics.span("icp.nn"):
-                idx, sq = nn_fn(p)
+                idx, sq = nn_fn(torch.where(src_mask[:, None], p, -PAD_COORD) if masked_queries else p)
             with metrics.span("icp.gn"):
                 T, rmse, cnt = _gn_from_corr(
                     p, idx, sq, src_mask, tgt_xyz, tgt_normals, T,

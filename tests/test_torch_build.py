@@ -64,11 +64,15 @@ def test_library_path_follows_the_flags(csrc_copy, monkeypatch):
 
 def test_every_source_that_includes_the_header_is_a_kernel():
     """The sources on the shared skeleton include it and its shared pairs by
-    their bare names, which nvcc resolves through ``-I csrc``: all four
-    kernels."""
+    their bare names, which nvcc resolves through ``-I csrc``: the four
+    NN kernels.  ``KERNELS`` is them and ICP's Gauss-Newton step, which
+    shares no header."""
+    nn_kernels = ["knn_kbest", "nn_argmin", "nn_gather", "nn_matmul"]
     for header in ("nn_search.cuh", "nn_pairs.cuh"):
         users = [p.stem for p in _build.CSRC_DIR.glob("*.cu") if f'#include "{header}"' in p.read_text()]
-        assert sorted(users) == ["knn_kbest", "nn_argmin", "nn_gather", "nn_matmul"] == sorted(_build.KERNELS)
+        assert sorted(users) == nn_kernels
+    assert sorted(_build.KERNELS) == sorted([*nn_kernels, "icp_gn"])
+    assert sorted(p.stem for p in _build.CSRC_DIR.glob("*.cu")) == sorted(_build.KERNELS)
 
 
 @pytest.mark.parametrize("name", sorted(_build.KERNELS))

@@ -164,3 +164,59 @@ def test_ate_rmse_matches():
     want = float(jicp.ate_rmse(jnp.asarray(a), jnp.asarray(b)))
     got = float(ticp.ate_rmse(torch.from_numpy(a), torch.from_numpy(b)))
     np.testing.assert_allclose(got, want, rtol=1e-6)
+
+
+def _small_pair(n=400, seed=7):
+    """A small surface and a moved fresh sampling of it, the last rows of
+    each dead, with the port's own normals: CPU tensors."""
+    from mapping_private_tpu_torch.core.cloud import PointCloud as TCloud
+    from mapping_private_tpu_torch.ops.normals import estimate_normals as t_normals
+
+    rng = np.random.default_rng(seed)
+
+    def sample():
+        xy = rng.uniform(-1, 1, (n, 2))
+        return np.c_[xy, 0.2 * np.sin(3 * xy[:, 0]) + 0.1 * np.cos(2 * xy[:, 1])].astype(np.float32)
+
+    c, s = np.cos(0.03), np.sin(0.03)
+    tgt, src = sample(), sample() @ np.array([[c, -s, 0], [s, c, 0], [0, 0, 1]], np.float32).T + [0.02, -0.01, 0.01]
+    keep = torch.arange(n) < n - 20
+    t = TCloud.from_numpy(tgt, device="cpu")
+    t = t.select(t.mask & torch.nn.functional.pad(keep, (0, t.mask.shape[0] - n)))
+    sm = keep.clone()
+    return torch.from_numpy(src.astype(np.float32)), sm, t.padded_xyz(), t.mask, t_normals(t, k=8).channel("normal")
+
+
+@pytest.mark.parametrize("backend", ["auto", "xla", "grid", "tiled"])
+def test_cpu_tensors_take_the_plain_path(monkeypatch, backend):
+    """On CPU tensors csrc/icp_gn.cu is never reached (``icp_gn.launches``
+    stays where it was) and the result is the plain version's: every sweep
+    through ``_gn_from_corr``, whose last pose and count are returned."""
+    from mapping_private_tpu_torch import _build
+    from mapping_private_tpu_torch.utils.metrics import metrics
+
+    def refuse(*a, **k):
+        raise AssertionError("a kernel was launched for CPU tensors")
+
+    monkeypatch.setattr(_build, "launch", refuse)
+    outs = []
+    orig = ticp._gn_from_corr
+
+    def recorded(*a, **k):
+        outs.append(orig(*a, **k))
+        return outs[-1]
+
+    monkeypatch.setattr(ticp, "_gn_from_corr", recorded)
+    before = metrics.counters["icp_gn.launches"]
+    args, iters = _small_pair(), 6
+    if backend == "tiled":
+        r = ticp.icp_point_to_plane_tiled(*args, tile_size=0.3, cap_per_cell=128, iters=iters, max_corr_dist=0.3)
+    else:
+        r = ticp.icp_point_to_plane(*args, iters=iters, max_corr_dist=0.3, nn_backend=backend,
+                                    grid_cell=0.3, cap_per_cell=32)
+    assert metrics.counters["icp_gn.launches"] == before
+    assert len(outs) == iters
+    T_last, rmse_last, cnt_last = outs[-1]
+    assert torch.equal(r.transform, T_last) and torch.equal(r.num_corr, cnt_last)
+    assert torch.equal(r.per_iter_rmse, torch.stack([o[1] for o in outs])) and torch.equal(r.rmse, rmse_last)
+    assert int(r.num_corr) > 300 and float(r.rmse) < 0.01

@@ -186,7 +186,7 @@ def test_denoise_counts_its_pairs_and_live_pairs(monkeypatch, fresh):
     assert fresh.counters["denoise.pairs"] == 2 * live * live + n * n
 
 
-@pytest.mark.parametrize("kernel", ["nn_argmin", "nn_matmul", "nn_gather", "knn_kbest"])
+@pytest.mark.parametrize("kernel", ["nn_argmin", "nn_matmul", "nn_gather", "knn_kbest", "icp_gn"])
 def test_launch_counters_still_count(monkeypatch, fresh, kernel):
     q, r = torch.zeros(4, 3), torch.zeros(3, 5)
     monkeypatch.setattr(nn_search, "search_index", lambda *a, **k: (torch.zeros(4, dtype=torch.int32), torch.zeros(4)))
@@ -201,8 +201,11 @@ def test_launch_counters_still_count(monkeypatch, fresh, kernel):
             nn_matmul._launch(q, r.T.contiguous())
         elif kernel == "nn_gather":
             nn_gather._launch(q, r, r, "vpu")
-        else:
+        elif kernel == "knn_kbest":
             knn_kbest._launch(r, 3)
+        else:  # one count a sweep that took the kernel
+            gn = icp._CardGN(q, torch.ones(4, dtype=torch.bool), q, q, torch.eye(4), 1, 0.25, 0.05, 1e-6, True)
+            gn.step(torch.zeros(4, dtype=torch.int32), torch.zeros(4), 0)
     assert fresh.counters[f"{kernel}.launches"] == 2
     assert not fresh.count_records  # counted with tracing off too, with no record kept
 
