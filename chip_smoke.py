@@ -2222,6 +2222,8 @@ def check_icp_gn(torch, dev, smi: str) -> dict:
     from unittest import mock
 
     from mapping_private_tpu_torch.core.cloud import PAD_COORD, PointCloud
+    from mapping_private_tpu_torch.core.se3 import se3_apply
+    from mapping_private_tpu_torch.ops import icp_gn
     from mapping_private_tpu_torch.ops.nn_argmin import nn_argmin_prepared, prepare_nn_ref_argmin
     from mapping_private_tpu_torch.ops.normals import estimate_normals
     from mapping_private_tpu_torch.registration import icp
@@ -2237,7 +2239,7 @@ def check_icp_gn(torch, dev, smi: str) -> dict:
     got = icp.icp_point_to_plane(*args, **kw)
     torch.cuda.synchronize()
     n_sweeps = metrics.counters["icp_gn.launches"] - before
-    with mock.patch.object(icp, "_gn_on_card", lambda t: False):
+    with mock.patch.object(icp_gn, "gauss_newton", icp_gn.PlainGN):
         want = icp.icp_point_to_plane(*args, **kw)
     gap = float(torch.linalg.matrix_norm(got.transform.double() - want.transform.double()))
     rel = float(((got.per_iter_rmse.double() - want.per_iter_rmse.double()).abs()
@@ -2253,18 +2255,18 @@ def check_icp_gn(torch, dev, smi: str) -> dict:
     # one sweep's launches alone, on the auto backend's buffers
     tgt_xyz = torch.where(args[3][:, None], args[2], PAD_COORD)
     prepared = prepare_nn_ref_argmin(tgt_xyz)
-    gn = icp._CardGN(args[0], args[1], tgt_xyz, torch.where(args[3][:, None], nrm, 0.0), got.transform,
-                     kw["iters"], kw["max_corr_dist"], kw["huber_delta"], kw["damping"], True)
+    gn = icp_gn.CardGN(args[0], args[1], tgt_xyz, torch.where(args[3][:, None], nrm, 0.0), got.transform,
+                       kw["iters"], kw["max_corr_dist"], kw["huber_delta"], kw["damping"], True)
     q = gn.apply()
     idx, sq = nn_argmin_prepared(q, prepared)
-    stages = {"apply": lambda: gn._launch(icp._GN_APPLY),
-              "partials": lambda: gn._launch(icp._GN_PARTIALS, idx, sq),
-              "solve": lambda: gn._launch(icp._GN_SOLVE)}
+    stages = {"apply": lambda: gn._launch(icp_gn.APPLY),
+              "partials": lambda: gn._launch(icp_gn.PARTIALS, idx, sq),
+              "solve": lambda: gn._launch(icp_gn.SOLVE)}
     us = {name: 1e3 * event_ms(torch, fn, 500) for name, fn in stages.items()}
     sweep_ms = event_ms(torch, lambda: [fn() for fn in stages.values()], 500)
     nn_ms = event_ms(torch, lambda: nn_argmin_prepared(q, prepared), 50)
-    plain_ms = event_ms(torch, lambda: icp._gn_from_corr(
-        icp.se3_apply(gn.T, args[0]), idx, sq, args[1], tgt_xyz, gn.nrm, gn.T,
+    plain_ms = event_ms(torch, lambda: icp_gn.gn_from_corr(
+        se3_apply(gn.T, args[0]), idx, sq, args[1], tgt_xyz, gn.nrm, gn.T,
         kw["max_corr_dist"], kw["huber_delta"], kw["damping"]), 20)
     n = args[0].shape[0]
     bytes_moved = n * (12 + 1 + 12 + 12) + n * (12 + 4 + 4 + 1 + 24)  # apply, then partials

@@ -53,13 +53,11 @@ def statistical_outlier_mask(
         avg = _mean_dist(sq, (idx >= 0) & torch.isfinite(sq))
     elif k <= K_MAX:
         rows, rt = live_rows(xyz, mask)
-        _count_pairs(rows.shape[0], mask)
         with metrics.span("knn"):
             sq = knn_kbest(rt, k)
         avg = torch.zeros(xyz.shape[0], dtype=torch.float32, device=xyz.device)
         avg.index_put_((rows,), _mean_dist(sq, torch.isfinite(sq)))
     else:
-        _count_pairs(xyz.shape[0], mask)
         idx, sq = knn_bruteforce(xyz, xyz, mask, k=k, exclude_self=True)
         avg = _mean_dist(sq, (idx >= 0) & torch.isfinite(sq))
 
@@ -69,14 +67,6 @@ def statistical_outlier_mask(
     var = torch.sum(avg * avg * live) / n_live - mean * mean
     std = torch.sqrt(torch.clamp_min(var, 0.0))
     return mask & (torch.abs(avg - mean) < alpha * std)
-
-
-def _count_pairs(searched: int, mask: torch.Tensor) -> None:
-    """The brute search's pairs (``searched`` rows against as many), and
-    of those the ones that join two live points."""
-    metrics.count("denoise.pairs", searched * searched)
-    if metrics.on():
-        metrics.count("denoise.live_pairs", torch.sum(mask, dtype=torch.int64) ** 2)
 
 
 def _mean_dist(sq: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:

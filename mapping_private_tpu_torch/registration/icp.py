@@ -5,10 +5,10 @@ Counterpart of ``mapping_private_tpu/registration/icp.py``
 residuals are Huber-weighted, the 6×6 normal equations are one reduction,
 and the pose update is an SE(3) exponential.  The sweep loop is a Python
 loop that never reads a value back to the host, so on the card the
-sweeps queue up without a sync.  On CUDA tensors each sweep's work beside
-the correspondence search is the hand-written kernel ``csrc/icp_gn.cu``
-(three launches: apply, partial sums, solve); CPU tensors run its plain
-version, ``se3_apply`` and ``_gn_from_corr``.
+sweeps queue up without a sync.  Each sweep's work beside the
+correspondence search is ``ops/icp_gn.py``'s Gauss-Newton step: the
+hand-written kernel ``csrc/icp_gn.cu`` on CUDA tensors, its plain version
+on CPU tensors.
 """
 from __future__ import annotations
 
@@ -19,8 +19,7 @@ import numpy as np
 import torch
 
 from mapping_private_tpu_torch.core.cloud import PAD_COORD
-from mapping_private_tpu_torch.core.linalg import cholesky_solve_unrolled
-from mapping_private_tpu_torch.core.se3 import se3_apply, se3_exp
+from mapping_private_tpu_torch.ops import icp_gn
 from mapping_private_tpu_torch.ops.neighbors import build_grid_hash, knn_bruteforce, nn_grid_1nn
 from mapping_private_tpu_torch.ops.nn_argmin import (
     nn_argmin_prepared,
@@ -38,117 +37,12 @@ from mapping_private_tpu_torch.ops.tiled_nn import (
 from mapping_private_tpu_torch.utils.metrics import metrics
 
 
-# csrc/icp_gn.cu's stages and launch geometry
-_GN_APPLY, _GN_PARTIALS, _GN_SOLVE = 0, 1, 2
-_GN_BLOCK = 128  # kBlock: threads of a partial-sums block
-_GN_MAX_BLOCKS = 1024  # kMaxBlocks
-_GN_ROW = 32  # kRow: float64 slots of a block's row of partial sums
-
-
 @dataclasses.dataclass(frozen=True)
 class ICPResult:
     transform: torch.Tensor  # (4,4) source → target
     rmse: torch.Tensor  # () residual RMS over accepted correspondences
     num_corr: torch.Tensor  # () int32 accepted correspondences (last sweep)
     per_iter_rmse: torch.Tensor  # (iters,)
-
-
-def _gn_from_corr(
-    p: torch.Tensor,
-    idx: torch.Tensor,
-    sq: torch.Tensor,
-    src_mask: torch.Tensor,
-    tgt_xyz: torch.Tensor,
-    tgt_normals: torch.Tensor,
-    T: torch.Tensor,
-    max_corr_dist: float,
-    huber_delta: float,
-    damping: float,
-):
-    """The GN update given correspondences (idx, sq) for transformed
-    points p — shared by every NN backend."""
-    ok = src_mask & (idx >= 0) & (sq <= max_corr_dist * max_corr_dist)
-    i = torch.clamp_min(idx, 0).long()
-    q = tgt_xyz[i]
-    n = tgt_normals[i]
-    r = torch.sum(n * (p - q), dim=-1)  # (N,) point-to-plane residual
-    absr = torch.abs(r)
-    w = torch.where(absr <= huber_delta, 1.0, huber_delta / torch.clamp_min(absr, 1e-12))
-    w = torch.where(ok, w, 0.0)
-    # J_i = [n ; p × n] for update T ← exp(ξ)·T
-    J = torch.cat([n, torch.linalg.cross(p, n)], dim=-1)  # (N,6)
-    Jw = J * w[:, None]
-    H = J.T @ Jw  # (6,6), full f32 (TF32 is off)
-    g = Jw.T @ r  # (6,)
-    xi = -cholesky_solve_unrolled(H, g, jitter=damping)
-    T_new = se3_exp(xi) @ T
-    cnt = torch.sum(ok, dtype=torch.int32)
-    rmse = torch.sqrt(torch.sum(w * r * r) / torch.clamp_min(torch.sum(w), 1e-12))
-    return T_new, rmse, cnt
-
-
-def _gn_on_card(src_xyz: torch.Tensor) -> bool:
-    """Whether the sweeps' GN work runs as csrc/icp_gn.cu: on CUDA tensors."""
-    return src_xyz.device.type == "cuda"
-
-
-class _CardGN:
-    """The GN work of every sweep as csrc/icp_gn.cu's launches, on the
-    buffers of one ``icp_point_to_plane`` call: the pose (a copy of the
-    initial one, rewritten in place by each solve), the moved points, the
-    NN queries with dead rows at −PAD_COORD where ``queries`` is set, the
-    blocks' partial sums and the (iters,) RMSE and count of each sweep."""
-
-    def __init__(self, src_xyz, src_mask, tgt_xyz, tgt_normals, T, iters: int,
-                 max_corr_dist: float, huber_delta: float, damping: float, queries: bool):
-        for name, t in (("src_xyz", src_xyz), ("tgt_xyz", tgt_xyz), ("tgt_normals", tgt_normals), ("T", T)):
-            if t.dtype != torch.float32:
-                raise TypeError(f"{name}: want float32 on the card, got {t.dtype}")
-        dev = src_xyz.device
-        self.n = src_xyz.shape[0]
-        self.src, self.mask = src_xyz.contiguous(), src_mask.to(torch.bool).contiguous()
-        self.tgt, self.nrm = tgt_xyz.contiguous(), tgt_normals.contiguous()
-        self.T = T.to(dev).clone(memory_format=torch.contiguous_format)
-        # the plain version's scalars, each rounded to f32 as a tensor op rounds them
-        self.params = torch.tensor([max_corr_dist * max_corr_dist, huber_delta, damping],
-                                   dtype=torch.float32, device=dev)
-        self.p = torch.empty_like(self.src)
-        self.q = torch.empty_like(self.src) if queries else None
-        self.blocks = max(1, min(-(-self.n // _GN_BLOCK), _GN_MAX_BLOCKS))
-        self.work = torch.empty((self.blocks, _GN_ROW), dtype=torch.float64, device=dev)
-        self.rmse = torch.empty((iters,), dtype=torch.float32, device=dev)
-        self.cnt = torch.empty((iters,), dtype=torch.int32, device=dev)
-        self.stream = torch.cuda.current_stream(dev).cuda_stream
-
-    def _launch(self, stage: int, idx=None, sq=None, sweep: int = 0) -> None:
-        from mapping_private_tpu_torch._build import launch
-
-        ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-        launch("icp_gn", stage, self.n, self.blocks, ptr(self.T), ptr(self.src), ptr(self.mask),
-               ptr(self.p), ptr(self.q), ptr(idx), ptr(sq), ptr(self.tgt), ptr(self.nrm),
-               ptr(self.params), ptr(self.work), ptr(self.rmse) + 4 * sweep, ptr(self.cnt) + 4 * sweep,
-               self.stream)
-
-    def apply(self) -> torch.Tensor:
-        """p = T·src; returns the NN queries: p itself unless ``queries``."""
-        self._launch(_GN_APPLY)
-        return self.p if self.q is None else self.q
-
-    def step(self, idx: torch.Tensor, sq: torch.Tensor, sweep: int) -> None:
-        """T ← exp(ξ)·T from the correspondences of ``apply``'s points;
-        this sweep's RMSE and count to slot ``sweep``."""
-        idx = idx.to(torch.int32).contiguous()
-        sq = sq.to(torch.float32).contiguous()
-        if idx.shape != (self.n,) or sq.shape != (self.n,) or idx.device != self.p.device:
-            raise ValueError(f"correspondences {tuple(idx.shape)}, {tuple(sq.shape)} on {idx.device}: "
-                             f"want ({self.n},) on {self.p.device}")
-        self._launch(_GN_PARTIALS, idx, sq)
-        self._launch(_GN_SOLVE, sweep=sweep)
-        metrics.count("icp_gn.launches")
-
-    def result(self) -> "ICPResult":
-        return ICPResult(transform=self.T, rmse=self.rmse[-1], num_corr=self.cnt[-1],
-                         per_iter_rmse=self.rmse)
 
 
 def icp_point_to_plane(
@@ -239,31 +133,16 @@ def icp_point_to_plane(
             raise ValueError(f"unknown nn_backend {nn_backend!r}")
 
         T = torch.eye(4, dtype=src_xyz.dtype, device=src_xyz.device) if init_T is None else init_T
-        if _gn_on_card(src_xyz):
-            gn = _CardGN(src_xyz, src_mask, tgt_xyz, tgt_normals, T, iters,
-                         max_corr_dist, huber_delta, damping, masked_queries)
-            with torch.cuda.device(src_xyz.device):
-                for s in range(iters):
-                    q = gn.apply()
-                    with metrics.span("icp.nn"):
-                        idx, sq = nn_fn(q)
-                    with metrics.span("icp.gn"):
-                        gn.step(idx, sq, s)
-            return gn.result()
-        rmses, cnts = [], []
-        for _ in range(iters):
-            p = se3_apply(T, src_xyz)
-            with metrics.span("icp.nn"):
-                idx, sq = nn_fn(torch.where(src_mask[:, None], p, -PAD_COORD) if masked_queries else p)
-            with metrics.span("icp.gn"):
-                T, rmse, cnt = _gn_from_corr(
-                    p, idx, sq, src_mask, tgt_xyz, tgt_normals, T,
-                    max_corr_dist, huber_delta, damping,
-                )
-            rmses.append(rmse)
-            cnts.append(cnt)
-        per_iter = torch.stack(rmses)
-        return ICPResult(transform=T, rmse=per_iter[-1], num_corr=cnts[-1], per_iter_rmse=per_iter)
+        with icp_gn.gauss_newton(src_xyz, src_mask, tgt_xyz, tgt_normals, T, iters,
+                                 max_corr_dist, huber_delta, damping, masked_queries) as gn:
+            for s in range(iters):
+                q = gn.apply()
+                with metrics.span("icp.nn"):
+                    idx, sq = nn_fn(q)
+                with metrics.span("icp.gn"):
+                    gn.step(idx, sq, s)
+        T, per_iter, cnt = gn.result()
+        return ICPResult(transform=T, rmse=per_iter[-1], num_corr=cnt[-1], per_iter_rmse=per_iter)
 
 
 def _segmented_nn(tgt_xyz, tgt_mask, src_mask, origin, tile, dims, cap, max_tiles, seg_len):

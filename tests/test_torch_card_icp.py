@@ -6,9 +6,9 @@ the repository root:
 
 (``--noconftest``: tests/conftest.py imports jax; nothing here does.)
 
-On the card, ``icp_point_to_plane`` against its plain version (``se3_apply``
-+ ``_gn_from_corr``, which CPU tensors run; here forced on the card's
-tensors) after 20 sweeps: a 20,000-point pair made as the ``scan20k``
+On the card, ``icp_point_to_plane`` against its plain version
+(``ops/icp_gn.py``'s ``PlainGN``, which CPU tensors run; here forced on the
+card's tensors) after 20 sweeps: a 20,000-point pair made as the ``scan20k``
 configuration makes its scans, and a tiled pair with dead rows on both
 sides and queries that spill out of the occupied-tile slots (idx = -1).
 The kernel sums JᵀWJ and JᵀWr in float64 where the plain version takes f32
@@ -23,6 +23,7 @@ import torch
 
 from mapping_private_tpu_torch.core.cloud import PointCloud
 from mapping_private_tpu_torch.core.se3 import se3_exp
+from mapping_private_tpu_torch.ops import icp_gn
 from mapping_private_tpu_torch.ops.normals import estimate_normals
 from mapping_private_tpu_torch.ops.tiled_nn import lattice_occupancy
 from mapping_private_tpu_torch.registration import icp
@@ -91,7 +92,7 @@ def run(args, kw, kernel: bool, monkeypatch):
     and how many sweeps took the kernel."""
     with monkeypatch.context() as m:
         if not kernel:
-            m.setattr(icp, "_gn_on_card", lambda t: False)
+            m.setattr(icp_gn, "gauss_newton", icp_gn.PlainGN)
         before = metrics.counters["icp_gn.launches"]
         res = icp.icp_point_to_plane(*args, **kw)
         torch.cuda.synchronize()

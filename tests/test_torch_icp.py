@@ -11,6 +11,8 @@ per-sweep RMSE within rtol 1e-4, correspondence count exact.  Once a run
 has converged its RMSE is f32 rounding noise (~2e-8 for coordinates of
 order 1, ulp 6e-8), where a relative bound means nothing; RMSE therefore
 also passes within an absolute 1e-7, the rounding of one coordinate."""
+import re
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -21,6 +23,9 @@ from test_icp import _bumpy_surface
 from mapping_private_tpu.core import PointCloud, se3_apply, se3_exp, se3_inverse
 from mapping_private_tpu.ops.normals import estimate_normals
 from mapping_private_tpu.registration import icp as jicp
+from mapping_private_tpu_torch import _build
+from mapping_private_tpu_torch.core.cloud import PAD_COORD
+from mapping_private_tpu_torch.ops import icp_gn
 from mapping_private_tpu_torch.registration import icp as ticp
 
 # (seed, true twist, iters, max_corr_dist): test_icp.py:19-35 and :38
@@ -191,8 +196,7 @@ def _small_pair(n=400, seed=7):
 def test_cpu_tensors_take_the_plain_path(monkeypatch, backend):
     """On CPU tensors csrc/icp_gn.cu is never reached (``icp_gn.launches``
     stays where it was) and the result is the plain version's: every sweep
-    through ``_gn_from_corr``, whose last pose and count are returned."""
-    from mapping_private_tpu_torch import _build
+    through ``gn_from_corr``, whose last pose and count are returned."""
     from mapping_private_tpu_torch.utils.metrics import metrics
 
     def refuse(*a, **k):
@@ -200,13 +204,13 @@ def test_cpu_tensors_take_the_plain_path(monkeypatch, backend):
 
     monkeypatch.setattr(_build, "launch", refuse)
     outs = []
-    orig = ticp._gn_from_corr
+    orig = icp_gn.gn_from_corr
 
     def recorded(*a, **k):
         outs.append(orig(*a, **k))
         return outs[-1]
 
-    monkeypatch.setattr(ticp, "_gn_from_corr", recorded)
+    monkeypatch.setattr(icp_gn, "gn_from_corr", recorded)
     before = metrics.counters["icp_gn.launches"]
     args, iters = _small_pair(), 6
     if backend == "tiled":
@@ -220,3 +224,16 @@ def test_cpu_tensors_take_the_plain_path(monkeypatch, backend):
     assert torch.equal(r.transform, T_last) and torch.equal(r.num_corr, cnt_last)
     assert torch.equal(r.per_iter_rmse, torch.stack([o[1] for o in outs])) and torch.equal(r.rmse, rmse_last)
     assert int(r.num_corr) > 300 and float(r.rmse) < 0.01
+
+
+# csrc/icp_gn.cu's constants and what the host mirrors of them: a wrong kRow
+# would size the partial-sums workspace wrong and the card would write past it
+GN_MIRRORS = {"kBlock": icp_gn.BLOCK, "kMaxBlocks": icp_gn.MAX_BLOCKS, "kRow": icp_gn.ROW,
+              "kPadCoord": PAD_COORD}
+
+
+@pytest.mark.parametrize("constant", sorted(GN_MIRRORS))
+def test_kernel_constants_match_their_mirrors(constant):
+    text = _build.source_path("icp_gn").read_text()
+    value = re.search(rf"constexpr (?:int|float) {constant} = ([0-9.e]+)f?;", text).group(1)
+    assert float(value) == GN_MIRRORS[constant]
